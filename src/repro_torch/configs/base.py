@@ -1,0 +1,132 @@
+"""Model config dataclasses (the port's own copy of ``repro.configs.base``'s
+model part; the CPSL, fleet, simulator and mesh configs come with their
+slices).
+
+A ModelConfig fully describes one architecture in the zoo. Layer stacks are
+an optional unrolled ``prologue`` followed by a periodic ``pattern``
+repeated ``n_periods`` times; parameters of the pattern are stacked on a
+leading ``n_periods`` axis. Heterogeneous stacks (gemma2 local/global,
+jamba 1:7 mamba:attn with alternating MoE) are one period of the repeating
+unit.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoECfg:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared_experts: int = 0
+    group_size: int = 2048          # tokens per dispatch group (GShard-style)
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class MLACfg:
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0            # 0 = full-rank q projection (V2-Lite)
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class SSMCfg:
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    headdim: int = 64
+    ngroups: int = 1
+    chunk_size: int = 256
+    dt_min: float = 0.001
+    dt_max: float = 0.1
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    """Kinds for one layer: mixer in {attn, mamba}, ffn in {dense, moe, none}.
+
+    ``window`` > 0 selects sliding-window attention for this layer (gemma2
+    local layers). ``window == 0`` means full (global) attention.
+    """
+    mixer: str = "attn"
+    ffn: str = "dense"
+    window: int = 0
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | encdec | vlm | audio | cnn
+    d_model: int
+    n_layers: int
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    prologue: Tuple[LayerSpec, ...] = ()
+    pattern: Tuple[LayerSpec, ...] = (LayerSpec("attn", "dense"),)
+    # attention details
+    attn_kind: str = "gqa"           # gqa | mla
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 1e4
+    attn_softcap: float = 0.0        # gemma2: 50.0
+    final_softcap: float = 0.0       # gemma2: 30.0
+    norm_kind: str = "rmsnorm"       # rmsnorm | layernorm
+    norm_eps: float = 1e-6
+    act: str = "silu"                # silu | gelu
+    glu: bool = True                 # gated MLP (swiglu/geglu) vs plain 2-matmul
+    post_norm: bool = False          # gemma2-style post-sublayer norms
+    tie_embeddings: bool = True
+    embed_scale: bool = False        # gemma: multiply embeddings by sqrt(d)
+    # sub-configs
+    moe: Optional[MoECfg] = None
+    mla: Optional[MLACfg] = None
+    ssm: Optional[SSMCfg] = None
+    # encoder-decoder (whisper)
+    encdec: bool = False
+    n_enc_layers: int = 0
+    enc_seq: int = 1500              # precomputed frame embeddings (frontend stub)
+    # numerics / implementation selection
+    dtype: str = "bfloat16"          # compute dtype
+    param_dtype: str = "float32"
+    attn_impl: str = "chunked"       # naive | chunked | pallas (the port's
+                                     # "pallas" is the hand-written CUDA kernel)
+    ssd_impl: str = "chunked"        # scan | chunked | pallas
+    remat: bool = True
+    remat_group: int = 1             # >1: two-level (sqrt) remat over
+                                     # groups of this many periods
+    q_chunk: int = 512
+    kv_chunk: int = 1024
+    loss_chunk: int = 0              # >0: chunked CE (never materializes
+                                     # the full (tokens, vocab) logits)
+
+    # -- derived -----------------------------------------------------------
+    @property
+    def n_periods(self) -> int:
+        body = self.n_layers - len(self.prologue)
+        if self.pattern:
+            assert body % len(self.pattern) == 0, (
+                f"{self.name}: {body} body layers not divisible by pattern "
+                f"of {len(self.pattern)}")
+            return body // len(self.pattern)
+        return 0
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // max(self.n_heads, 1)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def layer_specs(self) -> Tuple[LayerSpec, ...]:
+        """Flattened per-layer specs, prologue first."""
+        return self.prologue + self.pattern * self.n_periods

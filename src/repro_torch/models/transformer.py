@@ -1,0 +1,257 @@
+"""Decoder-only LM stack (dense attention families; the Mamba and MoE
+branches come with later slices).
+
+The stack = unrolled ``prologue`` blocks + ``n_periods`` repetitions of
+``pattern``, with the pattern's params stacked on a leading ``n_periods``
+axis as in the reference; the periods run as a Python loop. Caches follow
+the same tree. Decode writes the new token's k/v into the cache in place
+(the reference returns an updated copy) so a step moves no cache bytes.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.models import common as cm
+from repro_torch.models.common import Params
+
+
+def _unported(spec: LayerSpec, cfg: ModelConfig):
+    if spec.mixer == "mamba":
+        raise NotImplementedError(
+            "Mamba blocks are not ported yet (ROADMAP queue 1, slice 2: "
+            "mamba2-2.7b serving with the SSD kernel)")
+    if spec.ffn == "moe":
+        raise NotImplementedError(
+            "MoE FFNs are not ported yet (ROADMAP queue 1, slice 5: MLA "
+            "and MoE)")
+    if cfg.attn_kind == "mla":
+        raise NotImplementedError(
+            "MLA attention is not ported yet (ROADMAP queue 1, slice 5: "
+            "MLA and MoE)")
+    if spec.mixer != "attn":
+        raise ValueError(spec.mixer)
+
+
+def _index(tree, i: int):
+    """The i-th slice of every leaf of a stacked params/cache tree."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# --------------------------------------------------------------------------
+# one block
+# --------------------------------------------------------------------------
+
+def block_init(gen, cfg: ModelConfig, spec: LayerSpec) -> Params:
+    _unported(spec, cfg)
+    dt, dev = cm.pdtype(cfg), gen.device
+    p = {"pre_norm": cm.norm_init(cfg.d_model, cfg.norm_kind, dt, dev),
+         "attn": cm.gqa_init(gen, cfg)}
+    if cfg.post_norm:
+        p["post_norm"] = cm.norm_init(cfg.d_model, cfg.norm_kind, dt, dev)
+    if spec.ffn != "none":
+        p["mlp_norm"] = cm.norm_init(cfg.d_model, cfg.norm_kind, dt, dev)
+        p["mlp"] = cm.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg)
+        if cfg.post_norm:
+            p["mlp_post_norm"] = cm.norm_init(cfg.d_model, cfg.norm_kind,
+                                              dt, dev)
+    return p
+
+
+def _ffn(p: Params, x, cfg: ModelConfig, spec: LayerSpec):
+    if spec.ffn != "none":
+        h = cm.apply_norm(p["mlp_norm"], x, cfg.norm_kind, cfg.norm_eps)
+        f = cm.mlp_apply(p["mlp"], h, cfg)
+        if cfg.post_norm:
+            f = cm.apply_norm(p["mlp_post_norm"], f, cfg.norm_kind,
+                              cfg.norm_eps)
+        x = x + f
+    return x
+
+
+def block_apply(p: Params, x, cfg: ModelConfig, spec: LayerSpec,
+                positions) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x, aux_loss)."""
+    _unported(spec, cfg)
+    h = cm.apply_norm(p["pre_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    a = cm.gqa_apply(p["attn"], h, cfg, causal=True, window=spec.window,
+                     positions=positions)
+    if cfg.post_norm:
+        a = cm.apply_norm(p["post_norm"], a, cfg.norm_kind, cfg.norm_eps)
+    x = _ffn(p, x + a, cfg, spec)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# --------------------------------------------------------------------------
+# caches
+# --------------------------------------------------------------------------
+
+def _attn_cache_init(cfg: ModelConfig, batch: int, cap: int, device,
+                     lead: Tuple[int, ...] = ()):
+    hd, G = cfg.resolved_head_dim, cfg.n_kv_heads
+    shape = lead + (batch, cap, G, hd)
+    return {"k": torch.zeros(shape, dtype=cm.cdtype(cfg), device=device),
+            "v": torch.zeros(shape, dtype=cm.cdtype(cfg), device=device)}
+
+
+def layer_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int, cap: int,
+                     device="cpu"):
+    _unported(spec, cfg)
+    return _attn_cache_init(cfg, batch, cap, device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cap: int, device="cpu"):
+    """Full-model cache: prologue list + per-pattern-position stacked."""
+    pro = [layer_cache_init(cfg, s, batch, cap, device)
+           for s in cfg.prologue]
+    stack = []
+    for s in cfg.pattern:
+        _unported(s, cfg)
+        stack.append(_attn_cache_init(cfg, batch, cap, device,
+                                      (cfg.n_periods,)))
+    return {"prologue": pro, "stack": stack}
+
+
+def block_decode(p: Params, x, cache, cfg: ModelConfig, spec: LayerSpec,
+                 pos: int) -> Tuple[torch.Tensor, dict]:
+    """x: (B,1,D); pos: index of the new token. Writes its k/v into
+    ``cache`` in place and returns (x, cache)."""
+    _unported(spec, cfg)
+    cap = cache["k"].shape[1]
+    if not 0 <= pos < cap:
+        raise IndexError(f"decode position {pos} outside cache of {cap}")
+    h = cm.apply_norm(p["pre_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    positions = torch.full((1,), pos, device=x.device)
+    k_new, v_new = cm.gqa_project_kv(p["attn"], h, cfg, positions)
+    cache["k"][:, pos:pos + 1] = k_new.to(cache["k"].dtype)
+    cache["v"][:, pos:pos + 1] = v_new.to(cache["v"].dtype)
+    # window masking for local layers works through kv_valid_len + the
+    # window term using absolute positions
+    a = cm.gqa_apply(p["attn"], h, cfg, causal=False, window=spec.window,
+                     positions=positions, kv=(cache["k"], cache["v"]),
+                     kv_valid_len=pos + 1)
+    if cfg.post_norm:
+        a = cm.apply_norm(p["post_norm"], a, cfg.norm_kind, cfg.norm_eps)
+    return _ffn(p, x + a, cfg, spec), cache
+
+
+def block_prefill(p: Params, x, cfg: ModelConfig, spec: LayerSpec,
+                  positions, cap: int, cache: Optional[dict] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """Forward one block while building its decode cache. Returns
+    (x, aux, cache). ``cap`` >= S is the cache capacity; the k/v go into
+    ``cache`` when given (a layer's view of the stacked cache), else into
+    a new one."""
+    _unported(spec, cfg)
+    B, S, _ = x.shape
+    h = cm.apply_norm(p["pre_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    if cache is None:
+        cache = _attn_cache_init(cfg, B, cap, x.device)
+    k, v = cm.gqa_project_kv(p["attn"], h, cfg, positions)
+    cache["k"][:, :S] = k.to(cache["k"].dtype)
+    cache["v"][:, :S] = v.to(cache["v"].dtype)
+    a = cm.gqa_apply(p["attn"], h, cfg, causal=True, window=spec.window,
+                     positions=positions)
+    if cfg.post_norm:
+        a = cm.apply_norm(p["post_norm"], a, cfg.norm_kind, cfg.norm_eps)
+    x = _ffn(p, x + a, cfg, spec)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), cache
+
+
+# --------------------------------------------------------------------------
+# full model
+# --------------------------------------------------------------------------
+
+def init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Params on ``gen``'s device, drawn from ``gen``."""
+    params = {"embed": cm.embed_init(gen, cfg),
+              "final_norm": cm.norm_init(cfg.d_model, cfg.norm_kind,
+                                         cm.pdtype(cfg), gen.device)}
+    params["prologue"] = [block_init(gen, cfg, s) for s in cfg.prologue]
+    stack = []
+    for s in cfg.pattern:
+        periods = [block_init(gen, cfg, s) for _ in range(cfg.n_periods)]
+        stack.append(_stack(periods))
+    params["stack"] = stack
+    return params
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _stack_forward(params, x, cfg: ModelConfig, positions):
+    """Run prologue + the periods of the pattern. Returns (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, spec in enumerate(cfg.prologue):
+        x, a = block_apply(params["prologue"][i], x, cfg, spec, positions)
+        aux = aux + a
+    for n in range(cfg.n_periods):
+        for pos, spec in enumerate(cfg.pattern):
+            x, a = block_apply(_index(params["stack"][pos], n), x, cfg, spec,
+                               positions)
+            aux = aux + a
+    return x, aux
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            positions: Optional[torch.Tensor] = None,
+            inputs_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) int -> (logits (B,S,V) f32, aux loss)."""
+    if positions is None:
+        S = tokens.shape[1] if inputs_embeds is None else inputs_embeds.shape[1]
+        positions = torch.arange(S, device=tokens.device)
+    x = (cm.embed_apply(params["embed"], tokens, cfg)
+         if inputs_embeds is None else inputs_embeds)
+    x, aux = _stack_forward(params, x, cfg, positions)
+    x = cm.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    return cm.logits_apply(params["embed"], x, cfg), aux
+
+
+def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            cap: Optional[int] = None):
+    """Forward + cache build. Returns (last-position logits, cache)."""
+    B, S = tokens.shape
+    cap = cap or S
+    if S > cap:
+        raise ValueError(f"prompt of {S} tokens exceeds cache of {cap}")
+    positions = torch.arange(S, device=tokens.device)
+    cache = init_cache(cfg, B, cap, tokens.device)
+    x = cm.embed_apply(params["embed"], tokens, cfg)
+    for i, spec in enumerate(cfg.prologue):
+        x, _, _ = block_prefill(params["prologue"][i], x, cfg, spec,
+                                positions, cap, cache["prologue"][i])
+    for n in range(cfg.n_periods):
+        for pos, spec in enumerate(cfg.pattern):
+            x, _, _ = block_prefill(_index(params["stack"][pos], n), x, cfg,
+                                    spec, positions, cap,
+                                    _index(cache["stack"][pos], n))
+    x = cm.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    logits = cm.logits_apply(params["embed"], x[:, -1:, :], cfg)
+    return logits[:, 0], cache
+
+
+def decode_step(params: Params, cache: dict, tokens: torch.Tensor,
+                pos: int, cfg: ModelConfig):
+    """One decode step. tokens: (B,) int; pos: the new token's index
+    (attends to cache[:pos] + itself). Updates ``cache`` in place and
+    returns (logits (B,V), cache)."""
+    x = cm.embed_apply(params["embed"], tokens[:, None], cfg)
+    for i, spec in enumerate(cfg.prologue):
+        x, _ = block_decode(params["prologue"][i], x, cache["prologue"][i],
+                            cfg, spec, pos)
+    for n in range(cfg.n_periods):
+        for ppos, spec in enumerate(cfg.pattern):
+            x, _ = block_decode(_index(params["stack"][ppos], n), x,
+                                _index(cache["stack"][ppos], n), cfg, spec,
+                                pos)
+    x = cm.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    logits = cm.logits_apply(params["embed"], x, cfg)
+    return logits[:, 0], cache

@@ -1,0 +1,308 @@
+"""Port parity for the serving slice: gemma2 modules, blocks and
+``ServeEngine.generate`` against the JAX reference on the CPU, plus the
+port's own contracts (no JAX import, no silent CPU fallback).
+
+The model is a reduced gemma2-2b (``reduce_for_smoke``) in float32 with a
+local window of 8 on the first layer of each period, so the window bites
+at S = 16. Parameters come from the reference's ``init`` and reach the port
+through ``params_from_numpy``; activations are made with numpy.
+"""
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as jregistry
+from repro.configs.base import LayerSpec as JLayerSpec
+from repro.models import api as japi
+from repro.models import common as jcm
+from repro.models import transformer as jtfm
+from repro.serving.engine import ServeEngine as JServeEngine
+from repro_torch import streams
+from repro_torch.configs import registry
+from repro_torch.configs.base import LayerSpec
+from repro_torch.convert import params_from_numpy
+from repro_torch.kernels.flash_attention import kernel as fk
+from repro_torch.models import api
+from repro_torch.models import common as cm
+from repro_torch.models import transformer as tfm
+from repro_torch.serving.engine import ServeEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+TOL = 1e-5
+S = 16
+
+
+def _cfgs(dtype="float32", impl="pallas"):
+    kw = dict(dtype=dtype, attn_impl=impl)
+    jcfg = jregistry.reduce_for_smoke(jregistry.get("gemma2-2b"))
+    jcfg = jcfg.replace(pattern=(JLayerSpec("attn", "dense", window=8),
+                                 jcfg.pattern[1]), **kw)
+    cfg = registry.reduce_for_smoke(registry.get("gemma2-2b"))
+    cfg = cfg.replace(pattern=(LayerSpec("attn", "dense", window=8),
+                               cfg.pattern[1]), **kw)
+    return jcfg, cfg
+
+
+@pytest.fixture(scope="module")
+def model():
+    jcfg, cfg = _cfgs()
+    jparams = japi.init(jax.random.PRNGKey(0), jcfg)
+    params = params_from_numpy(jax.device_get(jparams), "cpu")
+    return jcfg, cfg, jparams, params
+
+
+def _layer(params, pos, n=0):
+    """Period n's params of pattern position pos (either package)."""
+    return jax.tree.map(lambda t: t[n], params["stack"][pos])
+
+
+def _tlayer(params, pos, n=0):
+    return tfm._index(params["stack"][pos], n)
+
+
+def _x(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _err(t, j):
+    return float(np.abs(t.float().numpy()
+                        - np.asarray(j, dtype=np.float32)).max())
+
+
+# -- configs ---------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", jregistry.list_archs())
+def test_registry_matches_reference(arch):
+    assert registry.list_archs() == jregistry.list_archs()
+    for reduce in (False, True):
+        j, t = jregistry.get(arch), registry.get(arch)
+        if reduce:
+            j, t = jregistry.reduce_for_smoke(j), registry.reduce_for_smoke(t)
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        assert t.n_periods == j.n_periods
+        assert t.resolved_head_dim == j.resolved_head_dim
+
+
+# -- modules -----------------------------------------------------------------
+
+def test_apply_norm(model):
+    jcfg, cfg, _, _ = model
+    x = _x(0, (2, S, cfg.d_model))
+    scale = _x(1, (cfg.d_model,))
+    want = jcm.apply_norm({"scale": jnp.asarray(scale)}, jnp.asarray(x),
+                          jcfg.norm_kind, jcfg.norm_eps)
+    got = cm.apply_norm({"scale": torch.from_numpy(scale)},
+                        torch.from_numpy(x), cfg.norm_kind, cfg.norm_eps)
+    assert _err(got, want) < TOL
+
+
+@pytest.mark.parametrize("offset", [0, 37])
+def test_apply_rope(model, offset):
+    _, cfg, _, _ = model
+    x = _x(2, (2, S, 4, cfg.resolved_head_dim))
+    pos = np.arange(S) + offset
+    want = jcm.apply_rope(jnp.asarray(x), jnp.asarray(pos), cfg.rope_theta)
+    got = cm.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                        cfg.rope_theta)
+    assert _err(got, want) < TOL
+
+
+@pytest.mark.parametrize("impl", ["naive", "chunked", "pallas"])
+@pytest.mark.parametrize("pos", [0, 1])       # local (window 8), global
+def test_gqa_apply(model, impl, pos):
+    jcfg, cfg, jparams, params = model
+    window = cfg.pattern[pos].window
+    x = _x(3, (2, S, cfg.d_model))
+    want = jcm.gqa_apply(_layer(jparams, pos)["attn"], jnp.asarray(x), jcfg,
+                         causal=True, window=window, impl=impl)
+    got = cm.gqa_apply(_tlayer(params, pos)["attn"], torch.from_numpy(x),
+                       cfg, causal=True, window=window, impl=impl)
+    assert _err(got, want) < TOL
+
+
+def test_mlp_apply(model):
+    jcfg, cfg, jparams, params = model
+    x = _x(4, (2, S, cfg.d_model))
+    want = jcm.mlp_apply(_layer(jparams, 0)["mlp"], jnp.asarray(x), jcfg)
+    got = cm.mlp_apply(_tlayer(params, 0)["mlp"], torch.from_numpy(x), cfg)
+    assert _err(got, want) < TOL
+
+
+def test_embed_and_logits_apply(model):
+    jcfg, cfg, jparams, params = model
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, S))
+    want = jcm.embed_apply(jparams["embed"], jnp.asarray(toks), jcfg)
+    got = cm.embed_apply(params["embed"], torch.from_numpy(toks), cfg)
+    assert _err(got, want) < TOL
+    x = 3.0 * _x(6, (2, 3, cfg.d_model))    # large enough for the softcap
+    want = jcm.logits_apply(jparams["embed"], jnp.asarray(x), jcfg)
+    got = cm.logits_apply(params["embed"], torch.from_numpy(x), cfg)
+    assert got.dtype == torch.float32 and got.shape == (2, 3, cfg.vocab_size)
+    assert float(got.abs().max()) < cfg.final_softcap
+    assert _err(got, want) < TOL
+
+
+@pytest.mark.parametrize("pos", [0, 1])
+def test_block_prefill_and_decode(model, pos):
+    jcfg, cfg, jparams, params = model
+    spec, jspec = cfg.pattern[pos], jcfg.pattern[pos]
+    cap = S + 2
+    x = _x(7, (2, S, cfg.d_model))
+    jx, _, jcache = jtfm.block_prefill(_layer(jparams, pos), jnp.asarray(x),
+                                       jcfg, jspec, jnp.arange(S), cap)
+    tx, _, cache = tfm.block_prefill(_tlayer(params, pos),
+                                     torch.from_numpy(x), cfg, spec,
+                                     torch.arange(S), cap)
+    assert _err(tx, jx) < TOL
+    for name in ("k", "v"):
+        assert _err(cache[name], jcache[name]) < TOL
+
+    x1 = _x(8, (2, 1, cfg.d_model))
+    jx1, jcache = jtfm.block_decode(_layer(jparams, pos), jnp.asarray(x1),
+                                    jcache, jcfg, jspec, S)
+    tx1, cache = tfm.block_decode(_tlayer(params, pos), torch.from_numpy(x1),
+                                  cache, cfg, spec, S)
+    assert _err(tx1, jx1) < TOL
+    for name in ("k", "v"):
+        assert _err(cache[name], jcache[name]) < TOL
+
+
+# -- the slice as a whole ------------------------------------------------------
+
+def test_forward_matches_reference(model):
+    jcfg, cfg, jparams, params = model
+    toks = np.random.default_rng(13).integers(0, cfg.vocab_size, (2, S))
+    want, _ = japi.forward(jparams, {"tokens": jnp.asarray(toks)}, jcfg)
+    got, aux = api.forward(params, {"tokens": torch.from_numpy(toks)}, cfg)
+    assert got.shape == (2, S, cfg.vocab_size) and float(aux) == 0.0
+    assert _err(got, want) < 1e-4
+    last, _ = api.prefill(params, {"tokens": torch.from_numpy(toks)}, cfg)
+    assert _err(last, got[:, -1].numpy()) < 1e-6
+
+
+def test_generate_matches_reference_f32(model):
+    jcfg, cfg, jparams, params = model
+    steps = 8
+    toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, S))
+    jeng = JServeEngine(jcfg, jparams, cap=S + steps)
+    eng = ServeEngine(cfg, params, cap=S + steps, device="cpu")
+    jlogits, _ = jeng.prefill({"tokens": jnp.asarray(toks, jnp.int32)})
+    logits, _ = eng.prefill({"tokens": torch.from_numpy(toks)})
+    assert _err(logits, jlogits) < 1e-4
+    want = np.asarray(jeng.generate({"tokens": jnp.asarray(toks, jnp.int32)},
+                                    steps=steps))
+    before = fk.launches
+    got = eng.generate({"tokens": torch.from_numpy(toks)}, steps=steps)
+    assert fk.launches == before      # CPU tensors take the plain version
+    assert got.dtype == torch.int32 and got.shape == (2, steps)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_generate_matches_reference_bf16():
+    jcfg, cfg = _cfgs(dtype="bfloat16")
+    jparams = japi.init(jax.random.PRNGKey(1), jcfg)
+    params = params_from_numpy(jax.device_get(jparams), "cpu")
+    toks = np.random.default_rng(10).integers(0, cfg.vocab_size, (2, S))
+    jlogits, _ = JServeEngine(jcfg, jparams, cap=S + 4).prefill(
+        {"tokens": jnp.asarray(toks, jnp.int32)})
+    eng = ServeEngine(cfg, params, cap=S + 4, device="cpu")
+    logits, _ = eng.prefill({"tokens": torch.from_numpy(toks)})
+    assert _err(logits, jlogits) < 0.15    # tests/test_kernels.py bf16 path
+    out = eng.generate({"tokens": torch.from_numpy(toks)}, steps=4)
+    assert out.shape == (2, 4)
+    assert int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size
+
+
+def test_generate_temperature_is_seeded(model):
+    _, cfg, _, params = model
+    eng = ServeEngine(cfg, params, cap=S + 4, device="cpu")
+    batch = {"tokens": torch.from_numpy(
+        np.random.default_rng(11).integers(0, cfg.vocab_size, (2, S)))}
+    runs = [eng.generate(batch, steps=4, temperature=0.8,
+                         generator=streams.sampler_generator(2, "cpu"))
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    assert runs[0].shape == (2, 4)
+
+
+def test_port_init_is_seeded_and_serves():
+    _, cfg = _cfgs()
+    p1 = api.init(streams.model_generator(0, "cpu"), cfg)
+    p2 = api.init(streams.model_generator(0, "cpu"), cfg)
+    assert torch.equal(p1["stack"][1]["attn"]["wq"]["w"],
+                       p2["stack"][1]["attn"]["wq"]["w"])
+    assert p1["stack"][0]["attn"]["wq"]["w"].shape == (
+        cfg.n_periods, cfg.d_model, cfg.n_heads * cfg.resolved_head_dim)
+    toks = torch.randint(0, cfg.vocab_size, (2, S),
+                         generator=streams.sampler_generator(1, "cpu"))
+    out = ServeEngine(cfg, p1, cap=S + 3, device="cpu").generate(
+        {"tokens": toks}, steps=3)
+    assert out.shape == (2, 3)
+
+
+def test_unported_families_raise():
+    for arch in ("mamba2-2.7b", "deepseek-v2-lite-16b", "whisper-small"):
+        cfg = registry.reduce_for_smoke(registry.get(arch))
+        with pytest.raises(NotImplementedError):
+            api.init(streams.model_generator(0, "cpu"), cfg)
+
+
+def test_params_from_numpy_bf16_leaves():
+    a = np.asarray(jnp.asarray(_x(12, (3, 5))).astype(jnp.bfloat16))
+    t = params_from_numpy({"w": [a]}, "cpu")["w"][0]
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))
+    t32 = params_from_numpy((a,), "cpu", torch.float32)[0]
+    assert t32.dtype == torch.float32 and torch.equal(t32, t.float())
+
+
+# -- the port's own contracts -------------------------------------------------
+
+def _port_files():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def test_port_never_imports_jax_or_reference():
+    bad = []
+    for path in _port_files():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                top = n.split(".")[0]
+                if top in ("jax", "jaxlib", "repro"):
+                    bad.append(f"{path.relative_to(ROOT)}: {n}")
+    assert not bad, bad
+    code = ("import sys; import repro_torch.serving.engine, "
+            "repro_torch.launch.serve, chip_smoke; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_engine_refuses_cpu_fallback(model, monkeypatch):
+    _, cfg, _, params = model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServeEngine(cfg, params, cap=S)
+    assert ServeEngine(cfg, params, cap=S, device="cpu").device.type == "cpu"

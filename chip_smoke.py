@@ -10,16 +10,23 @@ failures is caught:
 1. device: the card's name and power limit; builds every kernel from
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel).
 2. kernels: each kernel against its plain PyTorch version on the card, over
-   a sweep of small cases and at the shapes the serving path gives it
-   (gemma2-2b prefill: B*G = 16 kv heads, R = 2, S = 5120, D = 256, bf16,
-   softcap 50, window 4096 and 0), timed with CUDA events beside the plain
-   version, a PyTorch library call and the card's bound.
-3. serve: gemma2-2b at full width (random weights from a seeded generator)
+   a sweep of small cases and at the shapes the serving paths give it,
+   timed with CUDA events beside the plain version, a PyTorch library call
+   where one computes the same function, and the card's bound:
+   - flash attention (K1) at gemma2-2b prefill: B*G = 16 kv heads, R = 2,
+     S = 5120, D = 256, bf16, softcap 50, window 4096 and 0;
+   - the SSD scan (K2) at mamba2-2.7b prefill: BH = 4 * 80 heads,
+     S = 8192, P = 64, N = 128, chunk 256, bf16.
+3. serve gemma2-2b at full width (random weights from a seeded generator)
    through ``ServeEngine.generate`` with batch 4, a 5120-token prompt and 16
    greedy steps, with the kernels' launch counts read around that run;
    prefill and decode times with a torch.profiler breakdown of one call
    each; the prefill logits against the naive-attention path; a reduced
    gemma2 in float32 whose tokens must match the naive path exactly.
+4. serve mamba2-2.7b at full width the same way, with batch 4, an
+   8192-token prompt and 16 greedy steps; the prefill logits against the
+   chunked SSD path; a reduced mamba2 in float32 whose tokens must match
+   the scan path exactly.
 
 Prints one ``{"kernels": [...]}`` line and, last, the device line
 ``{"ok": true, "device": {...}}``.
@@ -41,9 +48,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 
 F32_TOL, BF16_TOL = 2e-5, 3e-2     # tests/test_kernels.py: kernel vs oracle
+SSD_F32_TOL, SSD_BF16_TOL = 5e-5, 5e-2   # tests/test_kernels.py: SSD
 LOGITS_TOL = 0.15                  # tests/test_kernels.py: bf16 model path
 
 BATCH, PROMPT, STEPS = 4, 5120, 16
+MAMBA_PROMPT = 8192                # 32 chunks of 256
 
 
 def log(msg: str):
@@ -211,77 +220,203 @@ def flash_slice_shapes() -> list:
     return rows
 
 
+# (BH, S, P, N, chunk, dtype name, large |A| dt)
+SSD_CASES = [
+    # the cases of tests/test_kernels.py::SSD_CASES
+    (3, 256, 64, 32, 64, "float32", False),
+    (2, 128, 32, 128, 128, "float32", False),
+    (4, 64, 16, 16, 32, "float32", False),
+    (2, 128, 64, 64, 64, "bfloat16", False),
+    (1, 512, 32, 32, 128, "float32", False),
+    # mamba2-2.7b's N, P and chunk at small BH
+    (2, 512, 64, 128, 256, "float32", False),
+    (2, 512, 64, 128, 256, "bfloat16", False),
+    # ragged S: the chunk halves to 8; S < chunk (Q = 100); odd S (Q = 1)
+    (2, 200, 32, 32, 64, "float32", False),
+    (2, 100, 64, 128, 256, "bfloat16", False),
+    (1, 129, 16, 16, 64, "float32", False),
+    # exp(cum_i - cum_j) overflows above the diagonal: no NaN may leak
+    (2, 256, 64, 128, 256, "float32", True),
+    (2, 256, 64, 128, 256, "bfloat16", True),
+]
+
+
+def _ssd_inputs(gen, BH, S, P, N, dtype, big_decay=False):
+    """tests/test_kernels.py's inputs, with B and C scaled by
+    0.5 * min(1, 32 / N) so that |y| stays below ~8 at any N: the absolute
+    limits then measure the kernel (5e-5 is a few f32 ulps; 5e-2 is under
+    one bf16 ulp only below 8)."""
+    import torch
+    import torch.nn.functional as F
+    def mk(*shape):
+        return torch.randn(shape, device="cuda", generator=gen)
+    x = mk(BH, S, P).to(dtype)
+    dt = F.softplus(mk(BH, S) + (1.0 if big_decay else -1.0))
+    A = (torch.full((BH,), -16.0, device="cuda") if big_decay
+         else -torch.exp(mk(BH) * 0.3))
+    scale = 0.5 * min(1.0, 32 / N)
+    return x, dt, A, (mk(BH, S, N) * scale).to(dtype), \
+        (mk(BH, S, N) * scale).to(dtype)
+
+
+def _ssd_err(got, want) -> float:
+    return max((got[0].float() - want[0].float()).abs().max().item(),
+               (got[1] - want[1]).abs().max().item())
+
+
+def ssd_sweep() -> dict:
+    """K2 against ssd_chunked_ref (same chunks) and, where S <= 512,
+    ssd_scan_ref: f32/bf16, the reference's cases, the model's N/P/chunk,
+    ragged S and large decays."""
+    import torch
+    from repro_torch.kernels.ssd.kernel import chunk_len, ssd_flat
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_scan_ref
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for (BH, S, P, N, chunk, name, big) in SSD_CASES:
+        args = _ssd_inputs(gen, BH, S, P, N, getattr(torch, name), big)
+        got = ssd_flat(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(got[0].float()).all()
+                and torch.isfinite(got[1]).all()):
+            raise AssertionError(f"ssd {name} BH={BH} S={S} P={P} N={N} "
+                                 f"chunk={chunk}: non-finite output")
+        plains = [ssd_chunked_ref(*args, chunk=chunk_len(S, chunk))]
+        if S <= 512:
+            plains.append(ssd_scan_ref(*args))
+        tol = SSD_F32_TOL if name == "float32" else SSD_BF16_TOL
+        for want in plains:
+            err = _ssd_err(got, want)
+            if not err < tol:
+                raise AssertionError(
+                    f"ssd {name} BH={BH} S={S} P={P} N={N} chunk={chunk} "
+                    f"large decay {big}: max abs err {err} >= {tol}")
+            worst[name] = max(worst[name], err)
+    log(f"ssd sweep: {len(SSD_CASES)} cases, max abs err {worst}")
+    return worst
+
+
+def _ssd_bound_ms(BH, S, P, N, Q, dtype):
+    """Each input read once, each output written once; the operations the
+    chunked form needs: per chunk, C B^T and M x over the Q(Q+1)/2 visible
+    (i, j) pairs, C h and the state update over Q*N*P each."""
+    import torch
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    size = 2 if name == "bfloat16" else 4
+    nbytes = size * (2 * BH * S * P + 2 * BH * S * N) \
+        + 4 * (BH * S + BH + BH * N * P)
+    pairs = Q * (Q + 1) // 2
+    flops = BH * (S // Q) * (2 * pairs * (N + P) + 4 * Q * N * P)
+    t_ops = flops / PEAK_FLOPS[name]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes",
+            {"bytes": nbytes, "flops": flops, "bytes_ms": 1e3 * t_bytes,
+             "operations_ms": 1e3 * t_ops})
+
+
+def ssd_slice_shape() -> dict:
+    """K2 at the mamba2-2.7b prefill shape: error, kernel and plain times
+    and the bound. No single PyTorch call computes the SSD scan, so there
+    is no library time."""
+    import torch
+    from repro_torch.kernels.ssd.kernel import chunk_len, ssd_flat
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    BH, S, P, N, chunk = BATCH * 80, MAMBA_PROMPT, 64, 128, 256
+    args = _ssd_inputs(gen, BH, S, P, N, torch.bfloat16)
+    Q = chunk_len(S, chunk)
+    got = ssd_flat(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    err = _ssd_err(got, ssd_chunked_ref(*args, chunk=Q))
+    if not err < SSD_BF16_TOL:
+        raise AssertionError(f"ssd slice shape: max abs err {err}")
+    ms = time_ms(lambda: ssd_flat(*args, chunk=chunk), 5)
+    plain_ms = time_ms(lambda: ssd_chunked_ref(*args, chunk=Q), 2)
+    bound_ms, bound_by, terms = _ssd_bound_ms(BH, S, P, N, Q, torch.bfloat16)
+    row = {"shape": f"x ({BH},{S},{P}) B, C ({BH},{S},{N}) bf16, "
+           f"chunk {Q}", "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+           "bound_by": bound_by, **terms}
+    log("ssd slice shape: " + json.dumps(row))
+    del args, got
+    torch.cuda.empty_cache()
+    return row
+
+
 # --------------------------------------------------------------------------
-# 3. serve
+# 3. and 4. serve
 # --------------------------------------------------------------------------
 
-def small_path_check():
-    """Reduced gemma2 in float32 on the card: the kernel path against the
-    naive path, tokens identical and prefill logits within 1e-4."""
+def small_path_check(cfg, plain_cfg, label: str):
+    """A reduced model in float32 on the card: the kernel path (``cfg``)
+    against the plain path, tokens identical and prefill logits within
+    1e-4."""
     import torch
     from repro_torch import streams
-    from repro_torch.configs import registry
-    from repro_torch.configs.base import LayerSpec
     from repro_torch.models import api
     from repro_torch.serving.engine import ServeEngine
-    cfg = registry.reduce_for_smoke(registry.get("gemma2-2b"))
-    cfg = cfg.replace(dtype="float32", attn_impl="pallas",
-                      pattern=(LayerSpec("attn", "dense", window=8),
-                               cfg.pattern[1]))
     params = api.init(streams.model_generator(0, "cuda"), cfg)
     toks = torch.randint(0, cfg.vocab_size, (2, 40), device="cuda",
                          generator=streams.sampler_generator(1, "cuda"))
     outs, logits = [], []
-    for impl in ("pallas", "naive"):
-        eng = ServeEngine(cfg.replace(attn_impl=impl), params, cap=48,
-                          device="cuda")
+    for c in (cfg, plain_cfg):
+        eng = ServeEngine(c, params, cap=48, device="cuda")
         logits.append(eng.prefill({"tokens": toks})[0])
         outs.append(eng.generate({"tokens": toks}, steps=8))
     err = (logits[0] - logits[1]).abs().max().item()
     if not (err < 1e-4 and torch.equal(outs[0], outs[1])):
-        raise AssertionError(f"reduced gemma2 f32: kernel vs naive logits "
+        raise AssertionError(f"reduced {label} f32: kernel vs plain logits "
                              f"err {err}, tokens equal "
                              f"{torch.equal(outs[0], outs[1])}")
-    log(f"reduced gemma2 f32 on the card: kernel vs naive logits max abs "
+    log(f"reduced {label} f32 on the card: kernel vs plain logits max abs "
         f"err {err:.3g}, 8 greedy tokens identical")
 
 
-def serve_phase() -> dict:
+def _kernel_modules() -> dict:
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
+    return {"flash_attention": fk, "ssd": sk}
+
+
+def serve(cfg, plain_cfg, prompt: int, kernel: str) -> dict:
+    """``cfg`` at full width through ``ServeEngine.generate`` (batch BATCH,
+    ``prompt`` tokens, STEPS greedy steps), with every kernel's launch count
+    set to 0 just before that run and read just after; ``kernel`` must have
+    been launched once per layer. Then a prefill and decode breakdown, a
+    profile of one call each, and the prefill logits against the plain
+    path ``plain_cfg``."""
     import torch
     from repro_torch import streams
-    from repro_torch.configs import registry
-    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.models import api
     from repro_torch.serving.engine import ServeEngine
-
-    small_path_check()
-
-    cfg = registry.get("gemma2-2b").replace(attn_impl="pallas")
     t0 = time.perf_counter()
     params = api.init(streams.model_generator(0, "cuda"), cfg)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"gemma2-2b init: {n_params / 1e9:.3f} B params in "
+    log(f"{cfg.name} init: {n_params / 1e9:.3f} B params in "
         f"{time.perf_counter() - t0:.2f} s")
-    cap = PROMPT + STEPS
+    cap = prompt + STEPS
     eng = ServeEngine(cfg, params, cap=cap, device="cuda")
     batch = {"tokens": torch.randint(
-        0, cfg.vocab_size, (BATCH, PROMPT), device="cuda",
+        0, cfg.vocab_size, (BATCH, prompt), device="cuda",
         generator=streams.sampler_generator(1, "cuda"))}
     eng.generate(batch, steps=2)                      # warm-up
     torch.cuda.synchronize()
 
     # the main path, with the kernels' counts read around it
-    fk.launches = 0
+    modules = _kernel_modules()
+    for m in modules.values():
+        m.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = eng.generate(batch, steps=STEPS)
     torch.cuda.synchronize()
     generate_s = time.perf_counter() - t0
-    launches = fk.launches
+    launches = {name: m.launches for name, m in modules.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if launches != cfg.n_layers:
-        raise AssertionError(f"flash_attention launched {launches} times in "
+    if launches[kernel] != cfg.n_layers:
+        raise AssertionError(f"{kernel} launched {launches[kernel]} times in "
                              f"one generate; expected {cfg.n_layers} (one "
                              f"per layer of the prefill)")
     if out.shape != (BATCH, STEPS) or out.dtype != torch.int32 or not (
@@ -297,7 +432,7 @@ def serve_phase() -> dict:
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     t0 = time.perf_counter()
     for i in range(STEPS - 1):
-        step_logits, cache = eng.decode(cache, tok, PROMPT + i)
+        step_logits, cache = eng.decode(cache, tok, prompt + i)
         tok = torch.argmax(step_logits, dim=-1).to(torch.int32)
     torch.cuda.synchronize()
     decode_ms = 1e3 * (time.perf_counter() - t0) / (STEPS - 1)
@@ -306,36 +441,59 @@ def serve_phase() -> dict:
     profiles = {
         "prefill": device_profile(lambda: eng.prefill(batch)),
         "decode_step": device_profile(
-            lambda: eng.decode(cache, tok, PROMPT + STEPS - 1))}
+            lambda: eng.decode(cache, tok, prompt + STEPS - 1))}
     del cache
     for name, prof in profiles.items():
-        log(f"profile {name}: " + json.dumps(prof))
+        log(f"profile {cfg.name} {name}: " + json.dumps(prof))
 
-    naive = ServeEngine(cfg.replace(attn_impl="naive"), params, cap=cap,
-                        device="cuda")
+    plain = ServeEngine(plain_cfg, params, cap=cap, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits_naive, cache = naive.prefill(batch)
+    logits_plain, cache = plain.prefill(batch)
     torch.cuda.synchronize()
-    naive_prefill_ms = 1e3 * (time.perf_counter() - t0)
+    plain_prefill_ms = 1e3 * (time.perf_counter() - t0)
     del cache
-    err = (logits - logits_naive).abs().max().item()
+    err = (logits - logits_plain).abs().max().item()
     if not err <= LOGITS_TOL:
-        raise AssertionError(f"gemma2-2b prefill logits: kernel vs naive "
-                             f"max abs err {err} > {LOGITS_TOL}")
+        raise AssertionError(f"{cfg.name} prefill logits: kernel vs plain "
+                             f"path max abs err {err} > {LOGITS_TOL}")
     result = {
-        "model": "gemma2-2b", "batch": BATCH, "prompt": PROMPT,
-        "steps": STEPS, "cap": cap, "flash_launches_per_generate": launches,
+        "model": cfg.name, "batch": BATCH, "prompt": prompt,
+        "steps": STEPS, "cap": cap, "launches_per_generate": launches,
         "generate_s": generate_s,
         "tokens_per_s": BATCH * STEPS / generate_s,
         "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
-        "naive_prefill_ms": naive_prefill_ms,
-        "logits_max_abs_err_vs_naive": err, "peak_memory_gb": peak_gb,
+        "plain_prefill_ms": plain_prefill_ms,
+        "logits_max_abs_err_vs_plain": err, "peak_memory_gb": peak_gb,
         "device_busy_share": {k: v["busy_share"]
                               for k, v in profiles.items()},
         "first_row": out[0].tolist()}
     log("serve: " + json.dumps(result))
+    del params, eng, plain
+    torch.cuda.empty_cache()
     return result
+
+
+def gemma_serve_phase() -> dict:
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import LayerSpec
+    small = registry.reduce_for_smoke(registry.get("gemma2-2b"))
+    small = small.replace(dtype="float32", attn_impl="pallas",
+                          pattern=(LayerSpec("attn", "dense", window=8),
+                                   small.pattern[1]))
+    small_path_check(small, small.replace(attn_impl="naive"), "gemma2")
+    cfg = registry.get("gemma2-2b").replace(attn_impl="pallas")
+    return serve(cfg, cfg.replace(attn_impl="naive"), PROMPT,
+                 "flash_attention")
+
+
+def mamba_serve_phase() -> dict:
+    from repro_torch.configs import registry
+    small = registry.reduce_for_smoke(registry.get("mamba2-2.7b")).replace(
+        dtype="float32", ssd_impl="pallas")
+    small_path_check(small, small.replace(ssd_impl="scan"), "mamba2")
+    cfg = registry.get("mamba2-2.7b").replace(ssd_impl="pallas")
+    return serve(cfg, cfg.replace(ssd_impl="chunked"), MAMBA_PROMPT, "ssd")
 
 
 def device_profile(fn, top: int = 8) -> dict:
@@ -385,7 +543,10 @@ def main() -> int:
     device_phase()
     sweep = flash_sweep()
     shapes = flash_slice_shapes()
-    serve = serve_phase()
+    ssd_worst = ssd_sweep()
+    ssd_row = ssd_slice_shape()
+    gemma = gemma_serve_phase()
+    mamba = mamba_serve_phase()
 
     def mean(key):
         return sum(r[key] for r in shapes) / len(shapes)
@@ -394,7 +555,7 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
-        "launches": serve["flash_launches_per_generate"],
+        "launches": gemma["launches_per_generate"]["flash_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         "ms": mean("ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"),
@@ -404,7 +565,19 @@ def main() -> int:
                "shapes, which gemma2-2b prefill launches 13 times each",
         "library_call": "torch.nn.functional.scaled_dot_product_attention "
                         "without softcap (no torch call softcaps)",
-        "shapes": shapes, "sweep_max_abs_err": sweep}]
+        "shapes": shapes, "sweep_max_abs_err": sweep}, {
+        "name": "ssd", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:28",
+        "launches": mamba["launches_per_generate"]["ssd"],
+        "max_abs_err": ssd_row["max_abs_err"],
+        "ms": ssd_row["ms"], "plain_ms": ssd_row["plain_ms"],
+        "bound_ms": ssd_row["bound_ms"], "bound_by": ssd_row["bound_by"],
+        "library_ms": None,
+        "per": "launch at the mamba2-2.7b prefill shape, which prefill "
+               "launches once per layer",
+        "library_call": "none: no single PyTorch call computes the SSD scan",
+        "shape": ssd_row["shape"], "sweep_max_abs_err": ssd_worst}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

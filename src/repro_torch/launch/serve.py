@@ -4,6 +4,12 @@
         --batch 4 --prompt-len 16 --steps 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+        --batch 4 --prompt-len 8192 --steps 16
+
+Attention layers run the flash-attention kernel and Mamba-2 layers the
+SSD kernel (``attn_impl``/``ssd_impl`` "pallas", the reference's name);
+on the CPU the kernels' wrappers take their plain versions.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ def main():
     cfg = registry.get(args.arch)
     if args.reduced:
         cfg = registry.reduce_for_smoke(cfg)
+    cfg = cfg.replace(attn_impl="pallas", ssd_impl="pallas")
     params = api.init(streams.model_generator(args.seed, device), cfg)
     eng = ServeEngine(cfg, params, cap=args.prompt_len + args.steps,
                       device=device)

@@ -1,11 +1,13 @@
-"""Decoder-only LM stack (dense attention families; the Mamba and MoE
-branches come with later slices).
+"""Decoder-only LM stack (attention and Mamba-2 mixers with dense FFNs;
+the MoE and MLA branches come with a later slice).
 
 The stack = unrolled ``prologue`` blocks + ``n_periods`` repetitions of
 ``pattern``, with the pattern's params stacked on a leading ``n_periods``
 axis as in the reference; the periods run as a Python loop. Caches follow
-the same tree. Decode writes the new token's k/v into the cache in place
-(the reference returns an updated copy) so a step moves no cache bytes.
+the same tree. Prefill and decode write each layer's cache in place (the
+reference returns an updated copy): an attention layer the new k/v, a
+Mamba layer its conv window and SSM state, so a step moves no cache bytes
+and a layer's view of the stacked cache stays current.
 """
 from __future__ import annotations
 
@@ -15,14 +17,11 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import common as cm
+from repro_torch.models import mamba2 as mb
 from repro_torch.models.common import Params
 
 
 def _unported(spec: LayerSpec, cfg: ModelConfig):
-    if spec.mixer == "mamba":
-        raise NotImplementedError(
-            "Mamba blocks are not ported yet (ROADMAP queue 1, slice 2: "
-            "mamba2-2.7b serving with the SSD kernel)")
     if spec.ffn == "moe":
         raise NotImplementedError(
             "MoE FFNs are not ported yet (ROADMAP queue 1, slice 5: MLA "
@@ -31,7 +30,7 @@ def _unported(spec: LayerSpec, cfg: ModelConfig):
         raise NotImplementedError(
             "MLA attention is not ported yet (ROADMAP queue 1, slice 5: "
             "MLA and MoE)")
-    if spec.mixer != "attn":
+    if spec.mixer not in ("attn", "mamba"):
         raise ValueError(spec.mixer)
 
 
@@ -49,8 +48,11 @@ def _index(tree, i: int):
 def block_init(gen, cfg: ModelConfig, spec: LayerSpec) -> Params:
     _unported(spec, cfg)
     dt, dev = cm.pdtype(cfg), gen.device
-    p = {"pre_norm": cm.norm_init(cfg.d_model, cfg.norm_kind, dt, dev),
-         "attn": cm.gqa_init(gen, cfg)}
+    p = {"pre_norm": cm.norm_init(cfg.d_model, cfg.norm_kind, dt, dev)}
+    if spec.mixer == "attn":
+        p["attn"] = cm.gqa_init(gen, cfg)
+    else:
+        p["mamba"] = mb.mamba_init(gen, cfg)
     if cfg.post_norm:
         p["post_norm"] = cm.norm_init(cfg.d_model, cfg.norm_kind, dt, dev)
     if spec.ffn != "none":
@@ -78,8 +80,11 @@ def block_apply(p: Params, x, cfg: ModelConfig, spec: LayerSpec,
     """Returns (x, aux_loss)."""
     _unported(spec, cfg)
     h = cm.apply_norm(p["pre_norm"], x, cfg.norm_kind, cfg.norm_eps)
-    a = cm.gqa_apply(p["attn"], h, cfg, causal=True, window=spec.window,
-                     positions=positions)
+    if spec.mixer == "attn":
+        a = cm.gqa_apply(p["attn"], h, cfg, causal=True, window=spec.window,
+                         positions=positions)
+    else:
+        a = mb.mamba_apply(p["mamba"], h, cfg)
     if cfg.post_norm:
         a = cm.apply_norm(p["post_norm"], a, cfg.norm_kind, cfg.norm_eps)
     x = _ffn(p, x + a, cfg, spec)
@@ -99,41 +104,44 @@ def _attn_cache_init(cfg: ModelConfig, batch: int, cap: int, device,
 
 
 def layer_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int, cap: int,
-                     device="cpu"):
+                     device="cpu", lead: Tuple[int, ...] = ()):
     _unported(spec, cfg)
-    return _attn_cache_init(cfg, batch, cap, device)
+    if spec.mixer == "attn":
+        return _attn_cache_init(cfg, batch, cap, device, lead)
+    return mb.mamba_init_cache(cfg, batch, cm.cdtype(cfg), device, lead)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cap: int, device="cpu"):
     """Full-model cache: prologue list + per-pattern-position stacked."""
     pro = [layer_cache_init(cfg, s, batch, cap, device)
            for s in cfg.prologue]
-    stack = []
-    for s in cfg.pattern:
-        _unported(s, cfg)
-        stack.append(_attn_cache_init(cfg, batch, cap, device,
-                                      (cfg.n_periods,)))
+    stack = [layer_cache_init(cfg, s, batch, cap, device, (cfg.n_periods,))
+             for s in cfg.pattern]
     return {"prologue": pro, "stack": stack}
 
 
 def block_decode(p: Params, x, cache, cfg: ModelConfig, spec: LayerSpec,
                  pos: int) -> Tuple[torch.Tensor, dict]:
-    """x: (B,1,D); pos: index of the new token. Writes its k/v into
-    ``cache`` in place and returns (x, cache)."""
+    """x: (B,1,D); pos: index of the new token. Writes its k/v (or, for a
+    Mamba layer, its conv window and SSM state) into ``cache`` in place
+    and returns (x, cache)."""
     _unported(spec, cfg)
-    cap = cache["k"].shape[1]
-    if not 0 <= pos < cap:
-        raise IndexError(f"decode position {pos} outside cache of {cap}")
     h = cm.apply_norm(p["pre_norm"], x, cfg.norm_kind, cfg.norm_eps)
-    positions = torch.full((1,), pos, device=x.device)
-    k_new, v_new = cm.gqa_project_kv(p["attn"], h, cfg, positions)
-    cache["k"][:, pos:pos + 1] = k_new.to(cache["k"].dtype)
-    cache["v"][:, pos:pos + 1] = v_new.to(cache["v"].dtype)
-    # window masking for local layers works through kv_valid_len + the
-    # window term using absolute positions
-    a = cm.gqa_apply(p["attn"], h, cfg, causal=False, window=spec.window,
-                     positions=positions, kv=(cache["k"], cache["v"]),
-                     kv_valid_len=pos + 1)
+    if spec.mixer == "attn":
+        cap = cache["k"].shape[1]
+        if not 0 <= pos < cap:
+            raise IndexError(f"decode position {pos} outside cache of {cap}")
+        positions = torch.full((1,), pos, device=x.device)
+        k_new, v_new = cm.gqa_project_kv(p["attn"], h, cfg, positions)
+        cache["k"][:, pos:pos + 1] = k_new.to(cache["k"].dtype)
+        cache["v"][:, pos:pos + 1] = v_new.to(cache["v"].dtype)
+        # window masking for local layers works through kv_valid_len + the
+        # window term using absolute positions
+        a = cm.gqa_apply(p["attn"], h, cfg, causal=False, window=spec.window,
+                         positions=positions, kv=(cache["k"], cache["v"]),
+                         kv_valid_len=pos + 1)
+    else:
+        a, cache = mb.mamba_decode_step(p["mamba"], h, cache, cfg)
     if cfg.post_norm:
         a = cm.apply_norm(p["post_norm"], a, cfg.norm_kind, cfg.norm_eps)
     return _ffn(p, x + a, cfg, spec), cache
@@ -143,19 +151,26 @@ def block_prefill(p: Params, x, cfg: ModelConfig, spec: LayerSpec,
                   positions, cap: int, cache: Optional[dict] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """Forward one block while building its decode cache. Returns
-    (x, aux, cache). ``cap`` >= S is the cache capacity; the k/v go into
-    ``cache`` when given (a layer's view of the stacked cache), else into
-    a new one."""
+    (x, aux, cache). ``cap`` >= S is the cache capacity; the k/v (or the
+    conv window and SSM state) go into ``cache`` in place when given (a
+    layer's view of the stacked cache), else into a new one."""
     _unported(spec, cfg)
     B, S, _ = x.shape
     h = cm.apply_norm(p["pre_norm"], x, cfg.norm_kind, cfg.norm_eps)
     if cache is None:
-        cache = _attn_cache_init(cfg, B, cap, x.device)
-    k, v = cm.gqa_project_kv(p["attn"], h, cfg, positions)
-    cache["k"][:, :S] = k.to(cache["k"].dtype)
-    cache["v"][:, :S] = v.to(cache["v"].dtype)
-    a = cm.gqa_apply(p["attn"], h, cfg, causal=True, window=spec.window,
-                     positions=positions)
+        cache = layer_cache_init(cfg, spec, B, cap, x.device)
+    if spec.mixer == "attn":
+        k, v = cm.gqa_project_kv(p["attn"], h, cfg, positions)
+        cache["k"][:, :S] = k.to(cache["k"].dtype)
+        cache["v"][:, :S] = v.to(cache["v"].dtype)
+        a = cm.gqa_apply(p["attn"], h, cfg, causal=True, window=spec.window,
+                         positions=positions)
+    else:
+        a, (conv_state, hT) = mb.mamba_apply(p["mamba"], h, cfg,
+                                             return_state=True)
+        # in place: ``cache`` may be this layer's view of the stacked cache
+        cache["conv"].copy_(conv_state)
+        cache["ssm"].copy_(hT)
     if cfg.post_norm:
         a = cm.apply_norm(p["post_norm"], a, cfg.norm_kind, cfg.norm_eps)
     x = _ffn(p, x + a, cfg, spec)

@@ -9,6 +9,7 @@ reference, so it runs where only the port is installed:
 """
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch import streams
 from repro_torch.configs import registry
@@ -16,11 +17,14 @@ from repro_torch.configs.base import LayerSpec
 from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.ssd import kernel as sk
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_scan_ref
 from repro_torch.models import api
 from repro_torch.models import common as cm
 from repro_torch.serving.engine import ServeEngine
 
 F32_TOL, BF16_TOL = 2e-5, 3e-2   # tests/test_kernels.py: kernel vs oracle
+SSD_F32_TOL, SSD_BF16_TOL = 5e-5, 5e-2   # tests/test_kernels.py: SSD
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -108,3 +112,95 @@ def test_reduced_gemma2_serves_through_the_kernel(cuda):
     err = (eng.prefill({"tokens": toks})[0]
            - naive.prefill({"tokens": toks})[0]).abs().max().item()
     assert err < 1e-4
+
+
+# (BH, S, P, N, chunk, dtype, large |A| dt)
+SSD_CASES = [
+    # the cases of tests/test_kernels.py::SSD_CASES
+    (3, 256, 64, 32, 64, torch.float32, False),
+    (2, 128, 32, 128, 128, torch.float32, False),
+    (4, 64, 16, 16, 32, torch.float32, False),
+    (2, 128, 64, 64, 64, torch.bfloat16, False),
+    (1, 512, 32, 32, 128, torch.float32, False),
+    # mamba2-2.7b's N, P and chunk at small BH, in both dtypes
+    (2, 512, 64, 128, 256, torch.float32, False),
+    (2, 512, 64, 128, 256, torch.bfloat16, False),
+    # ragged S: the chunk halves to 8; S < chunk (Q = 100, not a multiple
+    # of the 64-row tile); odd S > chunk (Q = 1)
+    (2, 200, 32, 32, 64, torch.float32, False),
+    (2, 100, 64, 128, 256, torch.bfloat16, False),
+    (1, 129, 16, 16, 64, torch.float32, False),
+    # exp(cum_i - cum_j) overflows above the diagonal: no NaN may leak
+    (2, 256, 64, 128, 256, torch.float32, True),
+    (2, 256, 64, 128, 256, torch.bfloat16, True),
+]
+
+
+def _ssd_inputs(gen, BH, S, P, N, dtype, big_decay):
+    """tests/test_kernels.py's inputs, with B and C scaled by
+    0.5 * min(1, 32 / N) so that |y| stays below ~8 at any N: the absolute
+    limits then measure the kernel (5e-5 is a few f32 ulps; 5e-2 is under
+    one bf16 ulp only below 8)."""
+    x = _randn(gen, BH, S, P, dtype=dtype)
+    shift = 1.0 if big_decay else -1.0
+    dt = F.softplus(_randn(gen, BH, S) + shift)
+    A = (torch.full((BH,), -16.0, device=gen.device) if big_decay
+         else -torch.exp(_randn(gen, BH) * 0.3))
+    scale = 0.5 * min(1.0, 32 / N)
+    Bm = (_randn(gen, BH, S, N) * scale).to(dtype)
+    Cm = (_randn(gen, BH, S, N) * scale).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("BH,S,P,N,chunk,dtype,big_decay", SSD_CASES)
+def test_ssd_kernel_vs_plain(cuda, BH, S, P, N, chunk, dtype, big_decay):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    args = _ssd_inputs(gen, BH, S, P, N, dtype, big_decay)
+    before = sk.launches
+    y, hT = sk.ssd_flat(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sk.launches == before + 1
+    assert y.dtype == dtype and y.shape == (BH, S, P)
+    assert hT.dtype == torch.float32 and hT.shape == (BH, N, P)
+    assert bool(torch.isfinite(y.float()).all() and torch.isfinite(hT).all())
+    tol = SSD_F32_TOL if dtype == torch.float32 else SSD_BF16_TOL
+    plains = [ssd_chunked_ref(*args, chunk=sk.chunk_len(S, chunk))]
+    if S <= 512:
+        plains.append(ssd_scan_ref(*args))
+    for y_p, h_p in plains:
+        assert (y.float() - y_p.float()).abs().max().item() < tol
+        assert (hT - h_p).abs().max().item() < tol
+
+
+def _mamba_cfg():
+    return registry.reduce_for_smoke(registry.get("mamba2-2.7b"))
+
+
+def test_reduced_mamba2_serves_through_the_kernel(cuda):
+    cfg = _mamba_cfg().replace(dtype="float32", ssd_impl="pallas")
+    params = api.init(streams.model_generator(0, cuda), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda,
+                         generator=streams.sampler_generator(1, cuda))
+    eng = ServeEngine(cfg, params, cap=48, device=cuda)
+    scan = ServeEngine(cfg.replace(ssd_impl="scan"), params, cap=48,
+                       device=cuda)
+    before = sk.launches
+    out = eng.generate({"tokens": toks}, steps=8)
+    assert sk.launches == before + cfg.n_layers
+    assert torch.equal(out, scan.generate({"tokens": toks}, steps=8))
+    err = (eng.prefill({"tokens": toks})[0]
+           - scan.prefill({"tokens": toks})[0]).abs().max().item()
+    assert err < 1e-4
+
+
+def test_mamba2_kernel_forward_vs_scan(cuda):
+    """tests/test_kernels.py::test_model_uses_pallas_impl_end_to_end's
+    mamba2 half: the bf16 model forward through the kernel and the scan."""
+    cfg = _mamba_cfg().replace(ssd_impl="pallas")
+    params = api.init(streams.model_generator(0, cuda), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (1, 64), device=cuda,
+                         generator=streams.sampler_generator(1, cuda))
+    logits, _ = api.forward(params, {"tokens": toks}, cfg)
+    want, _ = api.forward(params, {"tokens": toks},
+                          cfg.replace(ssd_impl="scan"))
+    assert (logits - want).abs().max().item() < 0.15

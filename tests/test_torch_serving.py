@@ -251,7 +251,7 @@ def test_port_init_is_seeded_and_serves():
 
 
 def test_unported_families_raise():
-    for arch in ("mamba2-2.7b", "deepseek-v2-lite-16b", "whisper-small"):
+    for arch in ("jamba-v0.1-52b", "deepseek-v2-lite-16b", "whisper-small"):
         cfg = registry.reduce_for_smoke(registry.get(arch))
         with pytest.raises(NotImplementedError):
             api.init(streams.model_generator(0, "cpu"), cfg)
@@ -289,7 +289,8 @@ def test_port_never_imports_jax_or_reference():
                     bad.append(f"{path.relative_to(ROOT)}: {n}")
     assert not bad, bad
     code = ("import sys; import repro_torch.serving.engine, "
-            "repro_torch.launch.serve, chip_smoke; "
+            "repro_torch.launch.serve, repro_torch.models.mamba2, "
+            "repro_torch.kernels.ssd.ops, chip_smoke; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(

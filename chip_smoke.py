@@ -15,8 +15,10 @@ failures is caught:
    where one computes the same function, and the card's bound:
    - flash attention (K1) at gemma2-2b prefill: B*G = 16 kv heads, R = 2,
      S = 5120, D = 256, bf16, softcap 50, window 4096 and 0;
-   - the SSD scan (K2) at mamba2-2.7b prefill: BH = 4 * 80 heads,
-     S = 8192, P = 64, N = 128, chunk 256, bf16.
+   - the SSD scan (K2) at the shape mamba2-2.7b prefill gives it: x
+     (4, 8192, 80, 64) and B, C (4, 8192, 1, 128) as strided views of one
+     packed projection, chunk 256, bf16; and at the flat per-head slice
+     shape x (320, 8192, 64), B and C (320, 8192, 128).
 3. serve gemma2-2b at full width (random weights from a seeded generator)
    through ``ServeEngine.generate`` with batch 4, a 5120-token prompt and 16
    greedy steps, with the kernels' launch counts read around that run;
@@ -87,11 +89,24 @@ def device_phase() -> dict:
     seconds = _build.build()
     log(f"kernels built in {seconds:.1f} s: {', '.join(_build.sources())}")
     for name in _build.sources():
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or (
-                    "spill" in line and " 0 bytes spill" not in line):
-                log(f"  {name}: {line.strip()}")
+        for fn, usage in _ptxas_usage(_build.build_log(name)):
+            log(f"  {name}: {fn}: {usage}")
     return {"nvidia_smi": smi, "build_s": seconds}
+
+
+def _ptxas_usage(text: str) -> list:
+    """(kernel, 'N registers, smem, spills') for each entry function in an
+    nvcc ``-Xptxas=-v`` log."""
+    rows, fn, spill = [], None, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "registers" in line and fn:
+            rows.append((fn, line.split(":", 1)[1].strip() + "; " + spill))
+            fn = None
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -296,17 +311,20 @@ def ssd_sweep() -> dict:
     return worst
 
 
-def _ssd_bound_ms(BH, S, P, N, Q, dtype):
-    """Each input read once, each output written once; the operations the
-    chunked form needs: per chunk, C B^T and M x over the Q(Q+1)/2 visible
-    (i, j) pairs, C h and the state update over Q*N*P each."""
+def _ssd_bound_ms(B_, S, H, G, P, N, Q, dtype):
+    """Each input read once (B and C once per group), each output written
+    once; the operations the chunked form needs: per (batch, group, chunk)
+    C B^T over the Q(Q+1)/2 visible (i, j) pairs, per (batch, head, chunk)
+    M x over those pairs and C h and the state update over Q*N*P each."""
     import torch
     name = "bfloat16" if dtype == torch.bfloat16 else "float32"
     size = 2 if name == "bfloat16" else 4
-    nbytes = size * (2 * BH * S * P + 2 * BH * S * N) \
-        + 4 * (BH * S + BH + BH * N * P)
+    nbytes = size * (2 * B_ * S * H * P + 2 * B_ * S * G * N) \
+        + 4 * (B_ * S * H + H + B_ * H * N * P)
     pairs = Q * (Q + 1) // 2
-    flops = BH * (S // Q) * (2 * pairs * (N + P) + 4 * Q * N * P)
+    nc = S // Q
+    flops = B_ * G * nc * 2 * pairs * N \
+        + B_ * H * nc * (2 * pairs * P + 4 * Q * N * P)
     t_ops = flops / PEAK_FLOPS[name]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
@@ -315,33 +333,70 @@ def _ssd_bound_ms(BH, S, P, N, Q, dtype):
              "operations_ms": 1e3 * t_ops})
 
 
-def ssd_slice_shape() -> dict:
-    """K2 at the mamba2-2.7b prefill shape: error, kernel and plain times
-    and the bound. No single PyTorch call computes the SSD scan, so there
-    is no library time."""
+def _ssd_model_inputs(gen, B_, S, H, G, P, N):
+    """x, B and C as mamba2's block hands them to the kernel: strided views
+    of one packed bf16 projection (B, S, H*P + 2*G*N), B and C once per
+    group; dt (B, S, H) and A (H,) in f32. Scaled as ``_ssd_inputs``."""
     import torch
+    import torch.nn.functional as F
+    packed = torch.randn((B_, S, H * P + 2 * G * N), device="cuda",
+                         generator=gen)
+    packed[..., H * P:] *= 0.5 * min(1.0, 32 / N)
+    packed = packed.to(torch.bfloat16)
+    x = packed[..., :H * P].reshape(B_, S, H, P)
+    Bm = packed[..., H * P:H * P + G * N].reshape(B_, S, G, N)
+    Cm = packed[..., H * P + G * N:].reshape(B_, S, G, N)
+    dt = F.softplus(torch.randn((B_, S, H), device="cuda", generator=gen)
+                    - 1.0)
+    A = -torch.exp(torch.randn((H,), device="cuda", generator=gen) * 0.3)
+    return x, dt, A, Bm, Cm
+
+
+def ssd_shapes() -> dict:
+    """K2 at the shape mamba2-2.7b's prefill gives it ("model": model
+    layout, B = 4, H = 80, one group of B and C, through ``ops.ssd``) and
+    at the flat per-head slice shape ("flat": x (320, 8192, 64), B and C
+    per head, through ``ssd_flat``): error against the plain version,
+    kernel and plain times and the bound of each. No single PyTorch call
+    computes the SSD scan, so there is no library time."""
+    import torch
+    from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.kernel import chunk_len, ssd_flat
-    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_grouped_ref
     gen = torch.Generator(device="cuda").manual_seed(3)
-    BH, S, P, N, chunk = BATCH * 80, MAMBA_PROMPT, 64, 128, 256
-    args = _ssd_inputs(gen, BH, S, P, N, torch.bfloat16)
+    B_, H, S, P, N, chunk = BATCH, 80, MAMBA_PROMPT, 64, 128, 256
     Q = chunk_len(S, chunk)
-    got = ssd_flat(*args, chunk=chunk)
-    torch.cuda.synchronize()
-    err = _ssd_err(got, ssd_chunked_ref(*args, chunk=Q))
-    if not err < SSD_BF16_TOL:
-        raise AssertionError(f"ssd slice shape: max abs err {err}")
-    ms = time_ms(lambda: ssd_flat(*args, chunk=chunk), 5)
-    plain_ms = time_ms(lambda: ssd_chunked_ref(*args, chunk=Q), 2)
-    bound_ms, bound_by, terms = _ssd_bound_ms(BH, S, P, N, Q, torch.bfloat16)
-    row = {"shape": f"x ({BH},{S},{P}) B, C ({BH},{S},{N}) bf16, "
-           f"chunk {Q}", "max_abs_err": err, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
-           "bound_by": bound_by, **terms}
-    log("ssd slice shape: " + json.dumps(row))
-    del args, got
-    torch.cuda.empty_cache()
-    return row
+    cases = {
+        "model": (lambda: _ssd_model_inputs(gen, B_, S, H, 1, P, N),
+                  lambda a: ssd_ops.ssd(*a, chunk=chunk),
+                  lambda a: ssd_grouped_ref(*a, chunk=Q), (B_, H, 1),
+                  f"x ({B_},{S},{H},{P}) strided, B, C ({B_},{S},1,{N}) "
+                  f"per group"),
+        "flat": (lambda: _ssd_inputs(gen, B_ * H, S, P, N, torch.bfloat16),
+                 lambda a: ssd_flat(*a, chunk=chunk),
+                 lambda a: ssd_chunked_ref(*a, chunk=Q), (1, B_ * H, B_ * H),
+                 f"x ({B_ * H},{S},{P}) B, C ({B_ * H},{S},{N}) per head")}
+    rows = {}
+    for label, (make, kernel, plain, (b, h, g), shape) in cases.items():
+        args = make()
+        got = kernel(args)
+        torch.cuda.synchronize()
+        err = _ssd_err(got, plain(args))
+        if not err < SSD_BF16_TOL:
+            raise AssertionError(f"ssd {label} shape: max abs err {err}")
+        bound_ms, bound_by, terms = _ssd_bound_ms(b, S, h, g, P, N, Q,
+                                                  torch.bfloat16)
+        rows[label] = {
+            "shape": f"{shape}, bf16, chunk {Q}", "max_abs_err": err,
+            "ms": time_ms(lambda: kernel(args), 10),
+            "plain_ms": time_ms(lambda: plain(args), 2),
+            "bound_ms": bound_ms, "bound_by": bound_by, **terms,
+            # the call's CUDA kernels (three in bf16), one profiled call
+            "kernels_ms": device_profile(lambda: kernel(args))["top"]}
+        log(f"ssd {label} shape: " + json.dumps(rows[label]))
+        del args, got
+        torch.cuda.empty_cache()
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -544,12 +599,13 @@ def main() -> int:
     sweep = flash_sweep()
     shapes = flash_slice_shapes()
     ssd_worst = ssd_sweep()
-    ssd_row = ssd_slice_shape()
+    ssd_rows = ssd_shapes()
     gemma = gemma_serve_phase()
     mamba = mamba_serve_phase()
 
     def mean(key):
         return sum(r[key] for r in shapes) / len(shapes)
+    ssd_model, ssd_flat_row = ssd_rows["model"], ssd_rows["flat"]
 
     kernels = [{
         "name": "flash_attention", "route": "cuda",
@@ -570,14 +626,19 @@ def main() -> int:
         "source": "src/repro_torch/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:28",
         "launches": mamba["launches_per_generate"]["ssd"],
-        "max_abs_err": ssd_row["max_abs_err"],
-        "ms": ssd_row["ms"], "plain_ms": ssd_row["plain_ms"],
-        "bound_ms": ssd_row["bound_ms"], "bound_by": ssd_row["bound_by"],
-        "library_ms": None,
-        "per": "launch at the mamba2-2.7b prefill shape, which prefill "
-               "launches once per layer",
+        "max_abs_err": ssd_model["max_abs_err"],
+        "ms": ssd_model["ms"], "plain_ms": ssd_model["plain_ms"],
+        "bound_ms": ssd_model["bound_ms"],
+        "bound_by": ssd_model["bound_by"], "library_ms": None,
+        "flat_ms": ssd_flat_row["ms"], "flat_plain_ms": ssd_flat_row["plain_ms"],
+        "flat_bound_ms": ssd_flat_row["bound_ms"],
+        "flat_max_abs_err": ssd_flat_row["max_abs_err"],
+        "per": "wrapper call (three CUDA kernels in bf16) at the shape "
+               "mamba2-2.7b prefill gives it, once per layer; flat_*: the "
+               "flat per-head slice shape",
         "library_call": "none: no single PyTorch call computes the SSD scan",
-        "shape": ssd_row["shape"], "sweep_max_abs_err": ssd_worst}]
+        "shape": ssd_model["shape"], "flat_shape": ssd_flat_row["shape"],
+        "sweep_max_abs_err": ssd_worst}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

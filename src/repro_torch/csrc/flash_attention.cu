@@ -7,26 +7,44 @@
 // kv head b / kv_repeat; scale 1/sqrt(D), then optional softcap
 // c*tanh(s/c), then causal and sliding-window masks at absolute query
 // positions q_offset + i, masked scores the finite -1e30, l clamped at
-// 1e-30, f32 accumulation and the output in the inputs' dtype.
+// 1e-30, f32 accumulation and the output in the inputs' dtype (rounded to
+// nearest even).
 //
 // What bounds it on this card: at the serving shape (D = 256, Sq = Skv =
-// 5120, causal) each (q, k) pair costs 4*D flops against ~D*2 bytes of
-// k/v that every query tile re-reads, so attention is compute-bound: the
-// bf16 tensor-core bound is ~0.43 ms per gemma2-2b layer, the byte bound
-// ~0.08 ms.
+// 5120, causal) each visible (q, k) pair costs 4*D flops against ~D*2
+// bytes of k/v that every query tile re-reads, so attention is
+// compute-bound: the bf16 tensor-core bound is ~0.43 ms per gemma2-2b
+// layer, the byte bound ~0.08 ms.
 //
-// What this design does about it (the simple, right-first version):
-//   * one block of 256 threads per (flat query head, 64-row query tile);
-//     a loop over 64-row kv tiles inside the block replaces the TPU grid's
-//     sequential third axis, with running m, l and acc kept in registers;
-//   * the kv-tile range is cut to the tiles that hold a visible (q, k)
-//     pair (causal diagonal, window start), as the TPU kernel skips them;
-//   * tiles are widened to f32 in shared memory (dynamic, up to ~209 KB at
-//     D = 256) with rows padded by one word so the k reads are free of bank
-//     conflicts; both products run as f32 FMAs on the CUDA cores, each
-//     thread owning a 4 x 4 score micro-tile and a 4 x D/16 slice of acc.
-// It therefore runs at the CUDA-core f32 rate, far below the tensor-core
-// bound; wgmma, TMA loads and pipelining are the later, faster version.
+// bf16 (the serving path), attn_bf16_kernel:
+//   * one warpgroup (4 warps, 16 query rows each) per (flat query head,
+//     64-row query tile). Q, K and V stay bf16 in shared memory, in the
+//     128-byte swizzled layout wgmma reads (64- or 32-byte rows for D = 32
+//     or 16; mma.cuh), which 16-byte cp.async writes without bank
+//     conflicts.
+//   * S = Q K^T (Q and K from shared memory) and O += P V (P from
+//     registers, V read N-major from the same tile layout, so nothing is
+//     transposed by hand) run on the tensor cores as wgmma, bf16 in and
+//     f32 accumulate. The online softmax (m, l) stays in registers, its
+//     row max reduced over each quad of lanes with shuffles; P is rounded
+//     to bf16 in registers and fed back as the A operand.
+//   * K/V tiles arrive through a ring of two stages: the next tile loads
+//     while this one computes.
+//   * Tiles with no visible pair are never loaded (the causal diagonal, the
+//     window start). Masks run only on tiles that cut the diagonal, the
+//     window edge or a ragged Skv; wholly visible tiles skip them.
+//   * The softmax runs in base 2 with the scale folded into its constants.
+//     Softcap 50 multiplies tanh's error by 50, so c tanh(s / c) is
+//     c - 2c / (exp(2s / c) + 1) with the ex2 and rcp units (~1e-7 in
+//     tanh), not tanh.approx (~2^-11). The 16 x D accumulator is rescaled
+//     only when a warp's running max moved.
+//   * D = 256: O is 64 x 256 f32, 128 registers a thread; the kv tile is
+//     32 keys there (64 below), so nothing spills and two blocks (96 KB of
+//     shared memory each) fit an SM.
+// float32 (the reduced models' exact-token checks, which TF32 would miss)
+// keeps the CUDA-core design, attn_f32_kernel: 256 threads per 64-row
+// query tile, f32 tiles in shared memory, 4 x 4 register micro-tiles of
+// f32 FMAs.
 //
 // Ragged lengths: any Sq/Skv. Query rows past Sq are computed on zeros and
 // not stored; keys past Skv get p = 0 exactly.
@@ -35,24 +53,23 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+
+#include "mma.cuh"
 
 namespace {
+
+constexpr float NEG_INF = -1e30f;
+
+// ---------------------------------------------------------------------------
+// float32: CUDA-core design
+// ---------------------------------------------------------------------------
 
 constexpr int BQ = 64;    // query rows per block
 constexpr int BKV = 64;   // keys per kv tile
 constexpr int NT = 256;   // threads per block, a 16 x 16 grid (ty, tx)
 constexpr int RQ = BQ / 16;   // query rows per thread: ty + 16 * i
 constexpr int CK = BKV / 16;  // score columns per thread: tx + 16 * j
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as XLA's convert
-}
 
 template <int D>
 struct Layout {
@@ -63,11 +80,11 @@ struct Layout {
       (BQ * QS + BKV * KS + BKV * D + BQ * PS) * int(sizeof(float));
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
-                int kv_repeat, int causal, int window, float softcap,
+attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ o, int Sq,
+                int Skv, int kv_repeat, int causal, int window, float softcap,
                 int q_offset, float scale) {
   using L = Layout<D>;
   constexpr int CD = D / 16;  // acc columns per thread: tx + 16 * c
@@ -86,13 +103,13 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = qt * BQ;
   const int nq = min(BQ, Sq - q0);
 
-  const T* qg = q + ((size_t)bh * Sq + q0) * D;
-  const T* kg = k + (size_t)(bh / kv_repeat) * Skv * D;
-  const T* vg = v + (size_t)(bh / kv_repeat) * Skv * D;
+  const float* qg = q + ((size_t)bh * Sq + q0) * D;
+  const float* kg = k + (size_t)(bh / kv_repeat) * Skv * D;
+  const float* vg = v + (size_t)(bh / kv_repeat) * Skv * D;
 
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, c = i % D;
-    sQ[r * L::QS + c] = r < nq ? to_f32(qg[(size_t)r * D + c]) : 0.f;
+    sQ[r * L::QS + c] = r < nq ? (qg[(size_t)r * D + c]) : 0.f;
   }
 
   // kv tiles holding at least one visible (q, k) pair
@@ -120,8 +137,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < BKV * D; i += NT) {
       const int r = i / D, c = i % D;
       const bool in = r < nk;
-      sK[r * L::KS + c] = in ? to_f32(kg[(size_t)(k0 + r) * D + c]) : 0.f;
-      sV[r * D + c] = in ? to_f32(vg[(size_t)(k0 + r) * D + c]) : 0.f;
+      sK[r * L::KS + c] = in ? (kg[(size_t)(k0 + r) * D + c]) : 0.f;
+      sV[r * D + c] = in ? (vg[(size_t)(k0 + r) * D + c]) : 0.f;
     }
     __syncthreads();
 
@@ -195,7 +212,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* og = o + ((size_t)bh * Sq + q0) * D;
+  float* og = o + ((size_t)bh * Sq + q0) * D;
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     const int r = ty + 16 * i;
@@ -203,46 +220,244 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float lc = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int c = 0; c < CD; ++c)
-        store(&og[(size_t)r * D + tx + 16 * c], acc[i][c] / lc);
+        og[(size_t)r * D + tx + 16 * c] = acc[i][c] / lc;
     }
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int BH,
-           int Sq, int Skv, int kv_repeat, int causal, int window,
-           float softcap, int q_offset, float scale, cudaStream_t stream) {
-  constexpr int bytes = Layout<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((Sq + BQ - 1) / BQ, BH);
-  attn_fwd_kernel<T, D><<<grid, NT, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, kv_repeat,
-      causal, window, softcap, q_offset, scale);
-  return int(cudaGetLastError());
+// ---------------------------------------------------------------------------
+// bf16: wgmma, cp.async ring
+// ---------------------------------------------------------------------------
+
+constexpr int STAGES = 2;  // K/V tiles in flight
+constexpr int TNT = 128;   // threads per block: one warpgroup, 64 query rows
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Tiles {
+  static constexpr int KV = D >= 256 ? 32 : 64;   // keys per kv tile
+  using S = tc::Swz<D>;
+  static constexpr int q_bytes = 64 * D * 2;       // the Q tile
+  static constexpr int kv_bytes = KV * D * 2;      // a K or a V tile
+  static constexpr int bytes = q_bytes + STAGES * 2 * kv_bytes;
+};
+
+// S = Q K^T with Q and K from shared memory; O += P V with P from
+// registers and V read N-major (transposed) from shared memory
+template <int D>
+__global__ void __launch_bounds__(TNT)
+attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 __nv_bfloat16* __restrict__ o, int Sq, int Skv,
+                 int kv_repeat, int causal, int window, float softcap,
+                 int q_offset, float scale) {
+  using T = Tiles<D>;
+  using S = typename T::S;
+  constexpr int KV = T::KV;
+  constexpr int NS = KV / 8, NO = D / 8;
+  extern __shared__ __align__(1024) unsigned char smem_bf16[];
+  unsigned char* sQ = smem_bf16;                       // [q_bytes]
+  unsigned char* sK = sQ + T::q_bytes;                 // [STAGES][kv_bytes]
+  unsigned char* sV = sK + STAGES * T::kv_bytes;       // [STAGES][kv_bytes]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  // causal tiles near the end do the most work: hand them out first
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y;
+  const int q0 = qt * 64;
+  const int nq = min(64, Sq - q0);
+  const __nv_bfloat16* kg = k + (size_t)(bh / kv_repeat) * Skv * D;
+  const __nv_bfloat16* vg = v + (size_t)(bh / kv_repeat) * Skv * D;
+
+  const int qlo = q_offset + q0;
+  const int qhi = q_offset + q0 + nq - 1;
+  int kv_begin = 0, kv_end = Skv;
+  if (causal) kv_end = min(kv_end, qhi + 1);
+  if (window > 0) kv_begin = max(0, qlo - window + 1);
+  const int t_begin = kv_begin / KV;
+  const int t_end = kv_end > kv_begin ? (kv_end + KV - 1) / KV : t_begin;
+
+  auto load_kv = [&](int t, int stage) {
+    const int k0 = t * KV;
+    const int nk = min(KV, Skv - k0);
+    tc::load_swz<D, D, KV, TNT>(sK + stage * T::kv_bytes, kg + (size_t)k0 * D,
+                                D, nk);
+    tc::load_swz<D, D, KV, TNT>(sV + stage * T::kv_bytes, vg + (size_t)k0 * D,
+                                D, nk);
+  };
+  tc::load_swz<D, D, 64, TNT>(sQ, q + ((size_t)bh * Sq + q0) * D, D, nq);
+  if (t_begin < t_end) load_kv(t_begin, 0);
+  tc::cp_async_commit();
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const int qpos0 = qlo + warp * 16 + g;
+  // the scale folded into the base-2 constants
+  const float k2 = softcap > 0.f ? 2.f * LOG2E * scale / softcap : 0.f;
+  const float cl = softcap * LOG2E, cl2 = 2.f * cl, sl = scale * LOG2E;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int stage = (t - t_begin) % STAGES;
+    if (t + 1 < t_end) {
+      load_kv(t + 1, (t + 1 - t_begin) % STAGES);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    tc::fence_proxy_async();
+    __syncthreads();
+    const unsigned char* sKt = sK + stage * T::kv_bytes;
+    const unsigned char* sVt = sV + stage * T::kv_bytes;
+
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      tc::wgmma_ss<KV, 0, 0>(s, S::template kmajor<64>(sQ, kk),
+                             S::template kmajor<KV>(sKt, kk));
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+
+    const int k0 = t * KV;
+    const int nk = min(KV, Skv - k0);
+    const bool whole = nk == KV && (!causal || k0 + KV - 1 <= qlo) &&
+                       (window <= 0 || qhi - k0 < window);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // base 2: exp(s - m) = 2^(x - m') with x = s log2(e); softcap
+        // c tanh(s/c) log2(e) = cl - 2 cl / (2^(s k2) + 1), cl = c log2(e)
+        float x = softcap > 0.f
+                      ? cl - __fdividef(cl2, exp2f(s[n][e] * k2) + 1.f)
+                      : s[n][e] * sl;
+        if (!whole) {
+          const int col = n * 8 + 2 * t4 + (e & 1);
+          const int qpos = qpos0 + (e >> 1) * 8, kpos = k0 + col;
+          bool ok = col < nk;
+          if (causal) ok = ok && qpos >= kpos;
+          if (window > 0) ok = ok && (qpos - kpos) < window;
+          x = ok ? x : NEG_INF;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n * 8 + 2 * t4 + (e & 1);
+        const float p = whole || col < nk ? exp2f(s[n][e] - m[e >> 1]) : 0.f;
+        s[n][e] = p;
+        l[e >> 1] += p;
+      }
+    // the running max rarely moves after the first tiles: skip the
+    // rescale of the 16 x D accumulator when it did not move in this warp
+    if (!__all_sync(0xffffffffu, alpha[0] == 1.f && alpha[1] == 1.f)) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+    }
+
+    uint32_t pa[KV / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < KV / 16; ++kk) {
+      pa[kk][0] = tc::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[kk][1] = tc::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[kk][2] = tc::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[kk][3] = tc::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KV / 16; ++kk)
+      tc::wgmma_rs_t<D>(acc, pa[kk], S::template mnmajor<KV>(sVt, kk));
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    __syncthreads();  // this stage is read; the next load may refill it
+  }
+  tc::cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+  __nv_bfloat16* og = o + ((size_t)bh * Sq + q0) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + g + 8 * r;
+    if (row < nq) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(og + (size_t)row * D + n * 8 +
+                                           2 * t4) =
+            __floats2bfloat162_rn(acc[n][2 * r] / l[r],
+                                  acc[n][2 * r + 1] / l[r]);
+    }
+  }
 }
 
-template <typename T>
-int dispatch(int D, const void* q, const void* k, const void* v, void* o,
-             int BH, int Sq, int Skv, int kv_repeat, int causal, int window,
-             float softcap, int q_offset, float scale, cudaStream_t stream) {
-  switch (D) {
-#define FA_CASE(d)                                                        \
-  case d:                                                                 \
-    return launch<T, d>(q, k, v, o, BH, Sq, Skv, kv_repeat, causal,       \
-                        window, softcap, q_offset, scale, stream);
-    FA_CASE(16)
-    FA_CASE(32)
-    FA_CASE(64)
-    FA_CASE(128)
-    FA_CASE(256)
-#undef FA_CASE
-    default:
-      return -1;
+int set_smem(const void* kern, int bytes) {
+  return int(cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+template <int D>
+int launch(int dtype, const void* q, const void* k, const void* v, void* o,
+           int BH, int Sq, int Skv, int kv_repeat, int causal, int window,
+           float softcap, int q_offset, float scale, cudaStream_t stream) {
+  if (dtype == 0) {
+    constexpr int bytes = Layout<D>::bytes;
+    if (int err = set_smem(reinterpret_cast<const void*>(attn_f32_kernel<D>),
+                           bytes))
+      return err;
+    const dim3 grid((Sq + BQ - 1) / BQ, BH);
+    attn_f32_kernel<D><<<grid, NT, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv,
+        kv_repeat, causal, window, softcap, q_offset, scale);
+  } else {
+    constexpr int bytes = Tiles<D>::bytes;
+    if (int err = set_smem(
+            reinterpret_cast<const void*>(attn_bf16_kernel<D>), bytes))
+      return err;
+    const dim3 grid((Sq + 63) / 64, BH);
+    attn_bf16_kernel<D><<<grid, TNT, bytes, stream>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<__nv_bfloat16*>(o), Sq, Skv, kv_repeat, causal, window,
+        softcap, q_offset, scale);
   }
+  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -256,11 +471,20 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int kv_repeat, int causal, int window, float softcap,
                         int q_offset, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(D, q, k, v, o, BH, Sq, Skv, kv_repeat, causal,
-                           window, softcap, q_offset, scale, s);
-  return dispatch<__nv_bfloat16>(D, q, k, v, o, BH, Sq, Skv, kv_repeat,
-                                 causal, window, softcap, q_offset, scale, s);
+  switch (D) {
+#define FA_CASE(d)                                                         \
+  case d:                                                                  \
+    return launch<d>(dtype, q, k, v, o, BH, Sq, Skv, kv_repeat, causal,    \
+                     window, softcap, q_offset, scale, s);
+    FA_CASE(16)
+    FA_CASE(32)
+    FA_CASE(64)
+    FA_CASE(128)
+    FA_CASE(256)
+#undef FA_CASE
+    default:
+      return -1;
+  }
 }
 
 const char* flash_attention_error_string(int code) {

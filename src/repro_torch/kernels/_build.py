@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own by ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/`` at the root
 of the checkout (listed in ``.gitignore``). The library's file name carries
-a hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Nothing here runs when the module is
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source or header is rebuilt and an unchanged one is loaded as
+it is. Nothing here runs when the module is
 imported: the CPU tests import every module, and this host need not have
 ``nvcc``.
 """
@@ -46,7 +47,12 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    """The library's path, keyed by the source, every shared header
+    (``csrc/*.cuh``, which any source may include) and the flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

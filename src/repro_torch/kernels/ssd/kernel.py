@@ -1,12 +1,19 @@
 """Mamba-2 SSD chunked scan, forward: the hand-written Hopper kernel and its
-wrapper.
+wrappers.
 
 The kernel is ``csrc/ssd.cu`` (built by ``kernels._build`` at first use);
-see its header for the design. For a CUDA tensor the wrapper launches it on
-the current stream or raises. For a CPU tensor, and only then, it computes
-the plain version ``ref.ssd_chunked_ref`` over the same chunks.
+see its header for the design. It reads the model's layout as it is: x
+(B, S, H, P) and dt (B, S, H) at any strides, B and C once per group
+(B, S, G, N). ``ssd_grouped`` is that entry; ``ssd_flat`` keeps the
+reference's flat per-head signature and hands the kernel strided views of
+its inputs (one batch, one head per group), so neither copies anything.
 
-``launches`` counts the kernel's launches in this process; a caller that
+For a CUDA tensor a wrapper launches the kernel on the current stream or
+raises. For a CPU tensor, and only then, it computes the plain version
+(``ref.ssd_chunked_ref`` over the same chunks).
+
+``launches`` counts wrapper calls that launched the kernel in this process
+(one call runs three CUDA kernels in bf16, one in float32); a caller that
 wants to show a run went through the kernel sets it to 0 before the run and
 reads it after.
 """
@@ -18,7 +25,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_grouped_ref
 
 STATE_DIMS = (16, 32, 64, 128)     # the N and P the kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -30,7 +37,9 @@ launches = 0
 def _lib():
     lib = _build.load("ssd")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, vp]
+    lib.ssd_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i,
+                            i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong),
+                            vp]
     lib.ssd_fwd.restype = i
     lib.ssd_error_string.argtypes = [i]
     lib.ssd_error_string.restype = ctypes.c_char_p
@@ -46,17 +55,8 @@ def chunk_len(S: int, chunk: int) -> int:
     return Q
 
 
-def _check(x, dt, A, Bm, Cm):
-    if x.dim() != 3 or Bm.dim() != 3 or Cm.shape != Bm.shape:
-        raise ValueError(f"expected x (BH,S,P), Bm = Cm (BH,S,N); got "
-                         f"{tuple(x.shape)}, {tuple(Bm.shape)}, "
-                         f"{tuple(Cm.shape)}")
-    BH, S, _ = x.shape
-    if Bm.shape[:2] != (BH, S) or dt.shape != (BH, S) or A.shape != (BH,):
-        raise ValueError(f"shapes disagree: x {tuple(x.shape)}, dt "
-                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, Bm "
-                         f"{tuple(Bm.shape)}")
-    if S == 0:
+def _check_types(x, dt, A, Bm, Cm):
+    if x.shape[1] == 0:
         raise ValueError("empty sequence")
     if not (x.dtype == Bm.dtype == Cm.dtype) or x.dtype not in _DTYPES:
         raise TypeError(f"x, Bm, Cm must share float32 or bfloat16; got "
@@ -68,36 +68,106 @@ def _check(x, dt, A, Bm, Cm):
         raise ValueError("x, dt, A, Bm, Cm on different devices")
 
 
-def ssd_flat(x, dt, A, Bm, Cm, *, chunk: int = 128):
-    """x: (BH, S, P); dt: (BH, S) f32; A: (BH,) f32; Bm, Cm: (BH, S, N).
-    Returns (y (BH, S, P) in x's dtype, hT (BH, N, P) f32), from a zero
-    state."""
+def _check_grouped(x, dt, A, Bm, Cm):
+    if x.dim() != 4 or Bm.dim() != 4 or Cm.shape != Bm.shape:
+        raise ValueError(f"expected x (B,S,H,P), Bm = Cm (B,S,G,N); got "
+                         f"{tuple(x.shape)}, {tuple(Bm.shape)}, "
+                         f"{tuple(Cm.shape)}")
+    B_, S, H, _ = x.shape
+    G = Bm.shape[2]
+    if (Bm.shape[:2] != (B_, S) or dt.shape != (B_, S, H)
+            or A.shape != (H,) or G == 0 or H % G):
+        raise ValueError(f"shapes disagree: x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, Bm "
+                         f"{tuple(Bm.shape)}")
+    _check_types(x, dt, A, Bm, Cm)
+
+
+def _launch(x, dt, A, Bm, Cm, y, Q: int) -> torch.Tensor:
+    """The kernel on model-layout tensors (y the output, any strides);
+    returns hT (B, H, N, P) f32."""
     global launches
-    _check(x, dt, A, Bm, Cm)
-    BH, S, P = x.shape
-    N = Bm.shape[-1]
-    Q = chunk_len(S, chunk)
-    if x.device.type == "cpu":
-        return ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=Q)
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2:]
     if x.device.type != "cuda":
         raise ValueError(f"no SSD kernel for device {x.device}")
     if N not in STATE_DIMS or P not in STATE_DIMS:
         raise ValueError(f"N={N}, P={P}: each must be in {STATE_DIMS}")
-    if not all(t.is_contiguous() for t in (x, dt, A, Bm, Cm)):
-        raise ValueError("x, dt, A, Bm, Cm must be contiguous")
-    y = torch.empty_like(x)
-    hT = torch.empty((BH, N, P), dtype=torch.float32, device=x.device)
-    if BH == 0:
-        return y, hT
+    if any(t.stride(-1) != 1 for t in (x, Bm, Cm, y)):
+        raise ValueError("x, Bm, Cm and y must be contiguous in their last "
+                         "dim")
+    if x.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1])
+            for t in (x, Bm, Cm)):
+        # the bf16 path copies rows 16 bytes at a time
+        raise ValueError("bf16 x, Bm, Cm need 16-byte aligned rows: base "
+                         "and strides a multiple of 8 elements")
+    A = A.contiguous()
+    hT = torch.empty((B_, H, N, P), dtype=torch.float32, device=x.device)
+    if B_ * H == 0:
+        return hT
+    if x.dtype == torch.bfloat16:
+        # the cumsums, the chunk states (f32) and each chunk's incoming
+        # state as bf16 hi + lo, the last two as transposes (P, N)
+        f32 = dict(dtype=torch.float32, device=x.device)
+        cum = torch.empty((B_ * H, S), **f32)
+        states = torch.empty((B_ * H, S // Q, P, N), **f32)
+        hin = torch.empty((B_ * H, S // Q, 2, P, N), dtype=torch.bfloat16,
+                          device=x.device)
+        scratch = (cum.data_ptr(), states.data_ptr(), hin.data_ptr())
+    else:
+        scratch = (None, None, None)
+    strides = (ctypes.c_longlong * 15)(
+        *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3],
+        *y.stride()[:3])
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_fwd(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                           Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
-                          hT.data_ptr(), _DTYPES[x.dtype], BH, S, Q, N, P,
-                          stream)
+                          hT.data_ptr(), *scratch, _DTYPES[x.dtype], B_, S,
+                          H, H // G, Q, N, P, strides, stream)
     if err != 0:
         raise RuntimeError("ssd kernel launch failed: "
                            + lib.ssd_error_string(err).decode())
     launches += 1
-    return y, hT
+    return hT
+
+
+def ssd_grouped(x, dt, A, Bm, Cm, *, chunk: int = 128):
+    """Model layout: x (B, S, H, P) and dt (B, S, H) f32 at any strides,
+    A (H,) f32, Bm and Cm (B, S, G, N) per group, head h reading group
+    h // (H / G). Returns (y (B, S, H, P) in x's dtype, hT (B, H, N, P)
+    f32), from a zero state."""
+    _check_grouped(x, dt, A, Bm, Cm)
+    Q = chunk_len(x.shape[1], chunk)
+    if x.device.type == "cpu":
+        return ssd_grouped_ref(x, dt, A, Bm, Cm, chunk=Q)
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    return y, _launch(x, dt, A, Bm, Cm, y, Q)
+
+
+def ssd_flat(x, dt, A, Bm, Cm, *, chunk: int = 128):
+    """x: (BH, S, P); dt: (BH, S) f32; A: (BH,) f32; Bm, Cm: (BH, S, N).
+    Returns (y (BH, S, P) in x's dtype, hT (BH, N, P) f32), from a zero
+    state."""
+    if x.dim() != 3 or Bm.dim() != 3 or Cm.shape != Bm.shape:
+        raise ValueError(f"expected x (BH,S,P), Bm = Cm (BH,S,N); got "
+                         f"{tuple(x.shape)}, {tuple(Bm.shape)}, "
+                         f"{tuple(Cm.shape)}")
+    BH, S, _ = x.shape
+    if Bm.shape[:2] != (BH, S) or dt.shape != (BH, S) or A.shape != (BH,):
+        raise ValueError(f"shapes disagree: x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, Bm "
+                         f"{tuple(Bm.shape)}")
+    _check_types(x, dt, A, Bm, Cm)
+    Q = chunk_len(S, chunk)
+    if x.device.type == "cpu":
+        return ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=Q)
+    y = torch.empty_like(x, memory_format=torch.contiguous_format)
+
+    def model(t):        # (BH, S, ...) as one batch of BH heads: a view
+        return t.transpose(0, 1).unsqueeze(0)
+
+    hT = _launch(model(x), model(dt), A, model(Bm), model(Cm), model(y), Q)
+    return y, hT[0]

@@ -65,3 +65,21 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, chunk: int = 64):
     h_prevs = torch.stack(h_prevs, dim=1)                  # (BH, nc, N, P)
     y_off = torch.einsum("bnqd,bndp,bnq->bnqp", Cc, h_prevs, torch.exp(cum))
     return (y_diag + y_off).reshape(BH, S, P).to(x.dtype), h
+
+
+def ssd_grouped_ref(x, dt, A, Bm, Cm, chunk: int = 64):
+    """``ssd_chunked_ref`` in the model layout: x (B, S, H, P), dt
+    (B, S, H), A (H,), Bm and Cm (B, S, G, N) per group, head h reading
+    group h // (H / G). Returns (y (B, S, H, P), hT (B, H, N, P))."""
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2:]
+
+    def flat(t):                         # (B, S, H, W) -> (B*H, S, W)
+        return t.permute(0, 2, 1, 3).reshape(B_ * H, S, t.shape[-1])
+
+    Bh = Bm.repeat_interleave(H // G, dim=2)
+    Ch = Cm.repeat_interleave(H // G, dim=2)
+    y, h = ssd_chunked_ref(flat(x), dt.permute(0, 2, 1).reshape(B_ * H, S),
+                           A.repeat(B_), flat(Bh), flat(Ch), chunk=chunk)
+    return (y.reshape(B_, H, S, P).permute(0, 2, 1, 3),
+            h.reshape(B_, H, N, P))

@@ -24,8 +24,9 @@ from repro_torch.models.common import (Params, _normal, apply_norm, dense,
 
 
 # --------------------------------------------------------------------------
-# SSD cores. x:(B,S,H,P) dt:(B,S,H) A:(H,) Bm,Cm:(B,S,H,N)  (groups already
-# broadcast to heads). Return y:(B,S,H,P) and final state (B,H,N,P) f32.
+# SSD cores. x:(B,S,H,P) dt:(B,S,H) A:(H,) Bm,Cm:(B,S,H,N) (groups already
+# broadcast to heads; the kernel, ``pallas``, takes them per group,
+# (B,S,G,N)). Return y:(B,S,H,P) and final state (B,H,N,P) f32.
 # --------------------------------------------------------------------------
 
 def ssd_scan(x, dt, A, Bm, Cm, h0=None):
@@ -207,11 +208,15 @@ def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     xin, B_r, C_r = torch.split(
         xbc, [d_inner, s.ngroups * s.d_state, s.ngroups * s.d_state], dim=-1)
     xh = xin.reshape(B_, S, H, s.headdim)
-    Bh = _broadcast_groups(B_r, cfg)
-    Ch = _broadcast_groups(C_r, cfg)
     dt, A = _dt_A(dtr, p)
+    if cfg.ssd_impl == "pallas":
+        # the kernel reads each group's B and C and the strided x itself
+        gshape = (B_, S, s.ngroups, s.d_state)
+        Bs, Cs = B_r.reshape(gshape), C_r.reshape(gshape)
+    else:
+        Bs, Cs = _broadcast_groups(B_r, cfg), _broadcast_groups(C_r, cfg)
 
-    y, hT = ssd(xh, dt, A, Bh, Ch, impl=cfg.ssd_impl, chunk=s.chunk_size)
+    y, hT = ssd(xh, dt, A, Bs, Cs, impl=cfg.ssd_impl, chunk=s.chunk_size)
     y = y + xh * p["D"].to(y.dtype)[:, None]
     y = y.reshape(B_, S, d_inner)
     y = apply_norm(p["norm"], y * F.silu(z), "rmsnorm", cfg.norm_eps)

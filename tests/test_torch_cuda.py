@@ -18,6 +18,7 @@ from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.ssd import kernel as sk
+from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_scan_ref
 from repro_torch.models import api
 from repro_torch.models import common as cm
@@ -76,6 +77,36 @@ def test_flash_kernel_vs_plain(cuda, dtype, BHkv, R, Sq, Skv, D, causal,
     want = attention_ref(q, k, v, **kw)
     err = (got.float() - want.float()).abs().max().item()
     assert err < (F32_TOL if dtype == torch.float32 else BF16_TOL)
+
+
+# bf16 cases at the edges of the tensor-core kernel's tiles (64 query rows;
+# 64 keys, 32 at D = 256): Sq and Skv off the tile grid, a window edge
+# inside a tile, q_offset > 0, a non-causal ragged Skv
+# (BHkv, R, Sq, Skv, D, causal, window, softcap, q_offset)
+TILE_EDGE_CASES = [
+    (2, 2, 130, 130, 256, True, 40, 50.0, 0),
+    (2, 1, 77, 203, 128, True, 0, 0.0, 126),
+    (1, 2, 100, 100, 64, True, 33, 0.0, 0),
+    (2, 1, 65, 300, 256, True, 100, 50.0, 235),
+    (2, 1, 70, 150, 32, False, 0, 0.0, 0),
+    (1, 1, 1, 97, 16, True, 0, 50.0, 96),
+]
+
+
+@pytest.mark.parametrize("BHkv,R,Sq,Skv,D,causal,window,cap,q_offset",
+                         TILE_EDGE_CASES)
+def test_flash_kernel_bf16_tile_edges(cuda, BHkv, R, Sq, Skv, D, causal,
+                                      window, cap, q_offset):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q = _randn(gen, BHkv * R, Sq, D, dtype=torch.bfloat16)
+    k = _randn(gen, BHkv, Skv, D, dtype=torch.bfloat16)
+    v = _randn(gen, BHkv, Skv, D, dtype=torch.bfloat16)
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_offset,
+              kv_repeat=R)
+    got = fk.flash_attention_flat(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, **kw)
+    assert (got.float() - want.float()).abs().max().item() < BF16_TOL
 
 
 def test_flash_kernel_rejects_unsupported_head_dim(cuda):
@@ -172,6 +203,75 @@ def test_ssd_kernel_vs_plain(cuda, BH, S, P, N, chunk, dtype, big_decay):
         assert (hT - h_p).abs().max().item() < tol
 
 
+def _packed_model_layout(gen, B_, S, H, G, P, N, dtype):
+    """x, B and C as the mamba2 block hands them to the kernel: strided
+    views into one packed (B, S, H*P + 2*G*N) projection, B and C per
+    group; dt (B, S, H) and A (H,)."""
+    packed = _randn(gen, B_, S, H * P + 2 * G * N)
+    packed[..., H * P:] *= 0.5 * min(1.0, 32 / N)
+    packed = packed.to(dtype)
+    x = packed[..., :H * P].reshape(B_, S, H, P)
+    Bm = packed[..., H * P:H * P + G * N].reshape(B_, S, G, N)
+    Cm = packed[..., H * P + G * N:].reshape(B_, S, G, N)
+    dt = F.softplus(_randn(gen, B_, S, H) - 1.0)
+    A = -torch.exp(_randn(gen, H) * 0.3)
+    return x, dt, A, Bm, Cm
+
+
+# (B, S, H, G, P, N, chunk, dtype): one group and two over 8 heads, the
+# serving N/P/chunk, a ragged S (Q = 200: query tiles of 64, 64, 64, 8),
+# and the float32 path
+GROUPED_CASES = [
+    (2, 512, 8, 1, 64, 128, 256, torch.bfloat16),
+    (2, 512, 8, 2, 64, 128, 256, torch.bfloat16),
+    (2, 200, 8, 2, 32, 64, 256, torch.bfloat16),
+    (1, 256, 8, 2, 32, 32, 64, torch.float32),
+]
+
+
+@pytest.mark.parametrize("B_,S,H,G,P,N,chunk,dtype", GROUPED_CASES)
+def test_ssd_grouped_strided_vs_plain(cuda, B_, S, H, G, P, N, chunk,
+                                      dtype):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x, dt, A, Bm, Cm = _packed_model_layout(gen, B_, S, H, G, P, N, dtype)
+    assert not x.is_contiguous() and not Bm.is_contiguous()
+    before = sk.launches
+    y, hT = ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sk.launches == before + 1
+    assert y.shape == (B_, S, H, P) and y.dtype == dtype
+    assert hT.shape == (B_, H, N, P) and hT.dtype == torch.float32
+    # the plain version on the broadcast, flat tensors
+    R = H // G
+    def flat(t):
+        return t.permute(0, 2, 1, 3).reshape(B_ * H, S, t.shape[-1])
+    args = (flat(x), dt.permute(0, 2, 1).reshape(B_ * H, S), A.repeat(B_),
+            flat(Bm.repeat_interleave(R, dim=2)),
+            flat(Cm.repeat_interleave(R, dim=2)))
+    y_p, h_p = ssd_chunked_ref(*args, chunk=sk.chunk_len(S, chunk))
+    tol = SSD_F32_TOL if dtype == torch.float32 else SSD_BF16_TOL
+    assert (flat(y).float() - y_p.float()).abs().max().item() < tol
+    assert (hT.reshape(B_ * H, N, P) - h_p).abs().max().item() < tol
+
+
+def test_ssd_kernel_path_copies_nothing(cuda):
+    """The model layout goes to the kernel as it is: the only CUDA kernels
+    one call runs are the SSD kernel's own (no copy of x, no broadcast of
+    B or C, no permute of y)."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    args = _packed_model_layout(gen, 2, 512, 8, 1, 64, 128, torch.bfloat16)
+    ssd_ops.ssd(*args, chunk=256)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ssd_ops.ssd(*args, chunk=256)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()
+             if "CUDA" in str(e.device_type) and e.count}
+    assert names, "the profiler saw no CUDA kernel"
+    assert all("ssd_" in n for n in names), names
+
+
 def _mamba_cfg():
     return registry.reduce_for_smoke(registry.get("mamba2-2.7b"))
 
@@ -203,4 +303,21 @@ def test_mamba2_kernel_forward_vs_scan(cuda):
     logits, _ = api.forward(params, {"tokens": toks}, cfg)
     want, _ = api.forward(params, {"tokens": toks},
                           cfg.replace(ssd_impl="scan"))
+    assert (logits - want).abs().max().item() < 0.15
+
+
+def test_qwen3_kernel_forward_vs_naive(cuda):
+    """tests/test_kernels.py::test_model_uses_pallas_impl_end_to_end's
+    qwen3-32b half: the reduced bf16 model forward through the kernel and
+    through naive attention."""
+    cfg = registry.reduce_for_smoke(registry.get("qwen3-32b")).replace(
+        attn_impl="pallas", q_chunk=16, kv_chunk=16)
+    params = api.init(streams.model_generator(0, cuda), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (1, 64), device=cuda,
+                         generator=streams.sampler_generator(1, cuda))
+    before = fk.launches
+    logits, _ = api.forward(params, {"tokens": toks}, cfg)
+    assert fk.launches == before + cfg.n_layers
+    want, _ = api.forward(params, {"tokens": toks},
+                          cfg.replace(attn_impl="naive"))
     assert (logits - want).abs().max().item() < 0.15

@@ -115,6 +115,30 @@ def test_grouped_flash_attention_vs_jax(causal, window, cap, q_offset):
     assert _err(got, want) < 1e-5
 
 
+@pytest.mark.parametrize("B", [1, 2])
+def test_grouped_flash_attention_hands_the_kernel_contiguous_heads(
+        B, monkeypatch):
+    """With B = 1 the flattening reshapes are strided views; the kernel
+    takes contiguous flat heads only, so the grouped entry makes them so
+    (batch-1 serving through the kernel raised before)."""
+    q, k, v = _inputs(5, (B, 40, 2, 2, 16), (B, 40, 2, 16), (B, 40, 2, 16))
+    seen = []
+    flat = fa_ops.flash_attention_flat
+
+    def spy(qf, kf, vf, **kw):
+        seen.append((qf, kf, vf))
+        return flat(qf, kf, vf, **kw)
+
+    monkeypatch.setattr(fa_ops, "flash_attention_flat", spy)
+    got = fa_ops.flash_attention(_torch(q), _torch(k), _torch(v), True, 0,
+                                 50.0, 0)
+    want = jfa_ops.flash_attention(_jax(q), _jax(k), _jax(v), True, 0, 50.0,
+                                   0)
+    (qf, kf, vf), = seen
+    assert qf.is_contiguous() and kf.is_contiguous() and vf.is_contiguous()
+    assert _err(got, want) < 1e-5
+
+
 @pytest.mark.parametrize("causal,window,cap,q_offset,chunks", [
     (True, 0, 0.0, 0, (16, 16)), (True, 20, 50.0, 0, (16, 32)),
     (False, 0, 50.0, 0, (32, 16)), (True, 0, 0.0, 8, (24, 20))])

@@ -6,17 +6,27 @@ The JAX SSD kernel runs in Pallas interpret mode, as its own tests run it;
 the port's wrapper takes its plain version for CPU tensors. The CUDA
 kernel itself is tested on the card by ``tests/test_torch_cuda.py``.
 """
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import registry as jregistry
 from repro.kernels.ssd import ops as jssd_ops
 from repro.kernels.ssd import ref as jref
 from repro.kernels.ssd.kernel import ssd_flat as jssd_flat
+from repro.models import api as japi
+from repro.models import mamba2 as jmb
+from repro_torch.configs import registry
+from repro_torch.convert import params_from_numpy
 from repro_torch.kernels.ssd import kernel as sk
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref
+from repro_torch.models import mamba2 as mb
+from repro_torch.models import transformer as tfm
 
 F32_TOL, BF16_TOL = 5e-5, 5e-2   # tests/test_kernels.py: kernel vs oracle
 LAYOUT_TOL = 2e-5                # tests/test_kernels.py: model layout
@@ -127,6 +137,83 @@ def test_model_layout_ssd_matches_reference():
     assert got[0].shape == (B_, S, H, P) and got[1].shape == (B_, H, N, P)
     assert _err(got[0], want[0]) < LAYOUT_TOL
     assert _err(got[1], want[1]) < LAYOUT_TOL
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_model_layout_grouped_strided_matches_reference(G):
+    """The kernel's model-layout entry: x, B and C as strided views of one
+    packed projection (as mamba2 hands them over), B and C per group,
+    against the reference kernel on the broadcast per-head B and C."""
+    B_, S, H, P, N = 2, 128, 4, 32, 16
+    rng = np.random.default_rng(10 + G)
+    packed = rng.standard_normal((B_, S, H * P + 2 * G * N + 8)).astype(
+        np.float32)
+    packed[..., H * P:] *= 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((B_, S, H)) - 1.0)).astype(
+        np.float32)
+    A = -np.exp(rng.standard_normal(H) * 0.3).astype(np.float32)
+
+    def split(a):
+        return (a[..., :H * P].reshape(B_, S, H, P),
+                a[..., H * P:H * P + G * N].reshape(B_, S, G, N),
+                a[..., H * P + G * N:H * P + 2 * G * N].reshape(B_, S, G, N))
+
+    x, Bg, Cg = split(packed)
+    R = H // G
+    want = jssd_ops.ssd(jnp.asarray(x), jnp.asarray(dt), jnp.asarray(A),
+                        jnp.asarray(np.repeat(Bg, R, axis=2)),
+                        jnp.asarray(np.repeat(Cg, R, axis=2)), 64)
+    tx, tB, tC = split(torch.from_numpy(packed))
+    assert not (tx.is_contiguous() or tB.is_contiguous())
+    before = sk.launches
+    got = ssd_ops.ssd(tx, torch.from_numpy(dt), torch.from_numpy(A), tB, tC,
+                      64)
+    assert sk.launches == before         # CPU tensors take the plain version
+    assert got[0].shape == (B_, S, H, P) and got[1].shape == (B_, H, N, P)
+    assert _err(got[0], want[0]) < LAYOUT_TOL
+    assert _err(got[1], want[1]) < LAYOUT_TOL
+
+
+@pytest.mark.parametrize("ngroups", [1, 2])
+def test_mamba_apply_kernel_path_matches_reference(ngroups, monkeypatch):
+    """Reduced mamba2 with ssd_impl="pallas" against the reference's
+    mamba_apply; the kernel entry gets B and C per group and x as views of
+    the block's projection, never a broadcast or a copy."""
+    def cfg_of(reg):
+        cfg = reg.reduce_for_smoke(reg.get("mamba2-2.7b"))
+        return cfg.replace(dtype="float32", ssd_impl="pallas",
+                           ssm=dataclasses.replace(cfg.ssm,
+                                                   ngroups=ngroups))
+    jcfg, cfg = cfg_of(jregistry), cfg_of(registry)
+    jparams = japi.init(jax.random.PRNGKey(2), jcfg)
+    params = params_from_numpy(jax.device_get(jparams), "cpu")
+    jp = jax.tree.map(lambda t: t[0], jparams["stack"][0])["mamba"]
+    tp = tfm._index(params["stack"][0], 0)["mamba"]
+    x = np.random.default_rng(16).standard_normal(
+        (2, 32, cfg.d_model)).astype(np.float32)
+
+    seen = []
+    grouped = sk.ssd_grouped
+
+    def spy(xh, dt, A, Bm, Cm, **kw):
+        seen.append((xh, Bm, Cm))
+        return grouped(xh, dt, A, Bm, Cm, **kw)
+
+    monkeypatch.setattr(ssd_ops, "ssd_grouped", spy)
+    out, (_, h) = mb.mamba_apply(tp, torch.from_numpy(x), cfg,
+                                 return_state=True)
+    jout, (_, jh) = jmb.mamba_apply(jp, jnp.asarray(x), jcfg,
+                                    return_state=True)
+    assert _err(out, jout) < LAYOUT_TOL and _err(h, jh) < LAYOUT_TOL
+    (xh, Bm, Cm), = seen
+    _, H, _ = mb.mamba_dims(cfg)
+    assert Bm.shape == Cm.shape == (2, 32, ngroups, cfg.ssm.d_state)
+    assert xh.shape == (2, 32, H, cfg.ssm.headdim)
+    # views of one projection buffer: nothing was materialised for them
+    assert (xh.untyped_storage().data_ptr()
+            == Bm.untyped_storage().data_ptr()
+            == Cm.untyped_storage().data_ptr())
+    assert not (xh.is_contiguous() or Bm.is_contiguous())
 
 
 def test_kernel_path_refuses_initial_state_and_bad_inputs():

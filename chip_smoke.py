@@ -17,8 +17,10 @@ failures is caught:
      S = 5120, D = 256, bf16, softcap 50, window 4096 and 0;
    - the SSD scan (K2) at the shape mamba2-2.7b prefill gives it: x
      (4, 8192, 80, 64) and B, C (4, 8192, 1, 128) as strided views of one
-     packed projection, chunk 256, bf16; and at the flat per-head slice
-     shape x (320, 8192, 64), B and C (320, 8192, 128).
+     packed projection, chunk 256, bf16; at the flat per-head slice
+     shape x (320, 8192, 64), B and C (320, 8192, 128); and at the model
+     path's width with 8191 and 8190 tokens (chunks of 1 and 2 rows)
+     against the sequential scan, with the call's peak memory.
 3. serve gemma2-2b at full width (random weights from a seeded generator)
    through ``ServeEngine.generate`` with batch 4, a 5120-token prompt and 16
    greedy steps, with the kernels' launch counts read around that run;
@@ -246,10 +248,13 @@ SSD_CASES = [
     # mamba2-2.7b's N, P and chunk at small BH
     (2, 512, 64, 128, 256, "float32", False),
     (2, 512, 64, 128, 256, "bfloat16", False),
-    # ragged S: the chunk halves to 8; S < chunk (Q = 100); odd S (Q = 1)
+    # ragged S: the chunk halves to 8; S < chunk (Q = 100); odd S (Q = 1);
+    # S = 2 mod 4 (Q = 2)
     (2, 200, 32, 32, 64, "float32", False),
     (2, 100, 64, 128, 256, "bfloat16", False),
     (1, 129, 16, 16, 64, "float32", False),
+    (2, 129, 64, 128, 256, "bfloat16", False),
+    (2, 130, 64, 128, 256, "bfloat16", False),
     # exp(cum_i - cum_j) overflows above the diagonal: no NaN may leak
     (2, 256, 64, 128, 256, "float32", True),
     (2, 256, 64, 128, 256, "bfloat16", True),
@@ -395,6 +400,51 @@ def ssd_shapes() -> dict:
             "kernels_ms": device_profile(lambda: kernel(args))["top"]}
         log(f"ssd {label} shape: " + json.dumps(rows[label]))
         del args, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ssd_short_chunks() -> list:
+    """K2 at mamba2-2.7b's model-path width (B = 4, H = 80, one group)
+    with prompts whose chunk rule gives Q = 1 (8191 tokens) and Q = 2
+    (8190): the peak memory of a call (its scratch is one window of
+    chunks), its time, and its error against the sequential scan."""
+    import torch
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_scan_ref
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    B_, H, P, N = BATCH, 80, 64, 128
+    rows = []
+    for S in (MAMBA_PROMPT - 1, MAMBA_PROMPT - 2):
+        x, dt, A, Bm, Cm = _ssd_model_inputs(gen, B_, S, H, 1, P, N)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y, hT = ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=256)
+        torch.cuda.synchronize()
+        extra_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+        if not (torch.isfinite(y.float()).all() and torch.isfinite(hT).all()):
+            raise AssertionError(f"ssd S={S}: non-finite output")
+
+        def flat(t):
+            return t.permute(0, 2, 1, 3).reshape(B_ * H, S, t.shape[-1])
+        y_p, h_p = ssd_scan_ref(
+            flat(x), dt.permute(0, 2, 1).reshape(B_ * H, S), A.repeat(B_),
+            flat(Bm.expand(B_, S, H, N)), flat(Cm.expand(B_, S, H, N)))
+        err = max((flat(y).float() - y_p.float()).abs().max().item(),
+                  (hT.reshape(B_ * H, N, P) - h_p).abs().max().item())
+        if not err < SSD_BF16_TOL:
+            raise AssertionError(f"ssd S={S}: max abs err {err} vs scan")
+        Q = sk.chunk_len(S, 256)
+        row = {"S": S, "Q": Q, "max_abs_err_vs_scan": err,
+               "window_chunks": sk.window_chunks(B_ * H, S // Q, Q, P, N),
+               "peak_extra_mb": extra_mb,
+               "ms": time_ms(lambda: ssd_ops.ssd(x, dt, A, Bm, Cm,
+                                                 chunk=256), 2)}
+        log("ssd short chunks: " + json.dumps(row))
+        rows.append(row)
+        del x, dt, A, Bm, Cm, y, hT, y_p, h_p
         torch.cuda.empty_cache()
     return rows
 
@@ -600,6 +650,7 @@ def main() -> int:
     shapes = flash_slice_shapes()
     ssd_worst = ssd_sweep()
     ssd_rows = ssd_shapes()
+    ssd_short = ssd_short_chunks()
     gemma = gemma_serve_phase()
     mamba = mamba_serve_phase()
 
@@ -638,7 +689,7 @@ def main() -> int:
                "flat per-head slice shape",
         "library_call": "none: no single PyTorch call computes the SSD scan",
         "shape": ssd_model["shape"], "flat_shape": ssd_flat_row["shape"],
-        "sweep_max_abs_err": ssd_worst}]
+        "short_chunks": ssd_short, "sweep_max_abs_err": ssd_worst}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,12 +35,18 @@
 //       scan over the chunks, h_in(c+1) = exp(cum_Q(c)) h_in(c) + state(c),
 //       with the loads of 8 chunks in flight at once; it writes each h_in
 //       as bf16 hi + lo for (c), and hT.
+//   The three run over windows of at most `win` chunks, one window after
+//   another, so that the scratch (cum, chunk states, h_in) holds one
+//   window, whatever S / Q is (Q = 1 for an odd S): the wrapper sizes the
+//   window to a fixed budget. (b) carries h from one window to the next
+//   through hT, in f32. The grids put the chunk, head and query-tile
+//   indices on x, whose limit is 2^31 - 1, and the batch on y.
 //   (c) ssd_out_kernel, one warpgroup per (batch, head, chunk, 64-row
 //       query tile): y = exp(cum) (C h_in) first, then
 //       + (C B^T . decay . dt) x over the key tiles at or below the
 //       diagonal.
-//   At the serving shape that is 10,240 + 40,960 blocks where the earlier
-//   design had 320. Blocks of one (batch, chunk) run side by side (the
+//   At the serving shape that is 10,240 + 40,960 blocks, in all windows,
+//   where the earlier design had 320. Blocks of one (batch, chunk) run side by side (the
 //   query tile is the fastest grid axis, then the head), so a group's B
 //   and C tiles and a head's h_in come from device memory about once and
 //   from L2 after that; nothing is broadcast to heads in memory.
@@ -58,9 +64,9 @@
 //   overflows for large |A| dt; the entry is selected to 0 there and exp
 //   is never evaluated (inf * 0 would be NaN). Rows past Q of a ragged
 //   tile (Q = 100, Q = 1) are zero-filled and never stored.
-//   Scratch (allocated by the wrapper): cum, the chunk states (f32) and
-//   h_in (bf16 hi + lo), ~1 GB of traffic at the serving shape beyond the
-//   function's own bytes.
+//   Scratch (allocated by the wrapper, one window's worth): cum, the chunk
+//   states (f32) and h_in (bf16 hi + lo), ~1 GB of traffic at the serving
+//   shape beyond the function's own bytes.
 // float32 (the reduced models' exact-token checks, which TF32 would miss)
 // keeps the CUDA-core design, ssd_f32_kernel: one block of 256 threads per
 // head walks its chunks in order with h in shared memory, 64-row query
@@ -88,10 +94,13 @@ struct Args {
   const void* Cm;
   void* y;
   float* hT;
-  float* cum;     // (Bsz * H, S), bf16 path
-  float* states;  // (Bsz * H, nc, P, N): chunk states^T, bf16 path
-  bf16* hin;      // (Bsz * H, nc, 2, P, N): h_in^T as bf16 hi, lo
-  int S, H, hpg, Q, nc;
+  // bf16 path, one window of at most `win` chunks
+  float* cum;     // (Bsz * H, win * Q)
+  float* states;  // (Bsz * H, win, P, N): chunk states^T
+  bf16* hin;      // (Bsz * H, win, 2, P, N): h_in^T as bf16 hi, lo
+  // nc: chunks of this call (f32) or of this window (bf16), the first
+  // being chunk c0 of the sequence
+  int H, hpg, Q, nc, c0, win;
   long long xs_b, xs_s, xs_h, dts_b, dts_s, dts_h, bs_b, bs_s, bs_g, cs_b,
       cs_s, cs_g, ys_b, ys_s, ys_h;
 };
@@ -385,11 +394,11 @@ ssd_state_kernel(const Args a) {
   const int Q = a.Q;
   float* sDt = sCum + Q;
 
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int c = blockIdx.x % a.nc, h = blockIdx.x / a.nc, b = blockIdx.y;
   const int g = h / a.hpg;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gr = lane / 4, t4 = lane % 4;
-  const long long s0 = (long long)c * Q;
+  const long long s0 = (long long)(a.c0 + c) * Q;
   const bf16* xb = static_cast<const bf16*>(a.x) + b * a.xs_b + h * a.xs_h +
                    s0 * a.xs_s;
   const bf16* Bb = static_cast<const bf16*>(a.Bm) + b * a.bs_b +
@@ -424,8 +433,8 @@ ssd_state_kernel(const Args a) {
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < Q; i += TNT)
-    a.cum[bh * a.S + s0 + i] = sCum[i];
+  float* cum = a.cum + (bh * a.win + c) * Q;
+  for (int i = threadIdx.x; i < Q; i += TNT) cum[i] = sCum[i];
   const float cum_last = sCum[Q - 1];
 
   float acc[MB][N / 8][4];
@@ -491,7 +500,7 @@ ssd_state_kernel(const Args a) {
     __syncthreads();  // this stage and the w tiles are read
   }
 
-  float* out = a.states + (bh * a.nc + c) * N * P;
+  float* out = a.states + (bh * a.win + c) * N * P;
 #pragma unroll
   for (int m = 0; m < MB; ++m)
 #pragma unroll
@@ -506,39 +515,48 @@ ssd_state_kernel(const Args a) {
     }
 }
 
-// (b) per (head, 4 state elements): the serial scan over the chunks, from
-// the chunk states to each chunk's incoming state h_in, written as bf16
-// hi + lo for (c) (both as transposes, P x N). The loads
-// of PASS_C chunks are issued together, so the scan waits on memory once
-// per PASS_C chunks and not once per chunk.
+// (b) per (head, 4 state elements): the serial scan over the window's
+// chunks, from the chunk states to each chunk's incoming state h_in,
+// written as bf16 hi + lo for (c) (both as transposes, P x N). It starts
+// from the state the previous window left in hT (zero for the first) and
+// leaves its own there. The loads of PASS_C chunks are issued together, so
+// the scan waits on memory once per PASS_C chunks and not once per chunk.
 constexpr int PASS_NT = 256;
 constexpr int PASS_C = 8;
 
 __global__ void __launch_bounds__(PASS_NT)
 ssd_pass_kernel(const Args a, int N_, int NP_) {
-  const int e = 4 * (blockIdx.x * PASS_NT + threadIdx.x);
+  const int e = 4 * (blockIdx.y * PASS_NT + threadIdx.x);
   if (e >= NP_) return;
-  const size_t bh = blockIdx.y;
-  const float* cum = a.cum + bh * a.S + (a.Q - 1);
-  const float* st = a.states + bh * a.nc * NP_ + e;
-  bf16* hin = a.hin + bh * a.nc * 2 * NP_ + e;
-  float4 hv = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int c0 = 0; c0 < a.nc; c0 += PASS_C) {
+  const size_t bh = blockIdx.x;
+  const float* cum = a.cum + bh * a.win * a.Q + (a.Q - 1);
+  const float* st = a.states + bh * a.win * NP_ + e;
+  bf16* hin = a.hin + bh * a.win * 2 * NP_ + e;
+  // the chunk states are state^T (P x N); hT is (N x P)
+  const int P_ = NP_ / N_;
+  float* hT = a.hT + bh * NP_;
+  float hs[4] = {0.f, 0.f, 0.f, 0.f};
+  if (a.c0 > 0) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) hs[q] = hT[((e + q) % N_) * P_ + (e + q) / N_];
+  }
+  float4 hv = make_float4(hs[0], hs[1], hs[2], hs[3]);
+  for (int k0 = 0; k0 < a.nc; k0 += PASS_C) {
     float4 sv[PASS_C];
     float dec[PASS_C];
 #pragma unroll
     for (int j = 0; j < PASS_C; ++j)
-      if (c0 + j < a.nc) {
-        sv[j] = *reinterpret_cast<const float4*>(st + (size_t)(c0 + j) * NP_);
-        dec[j] = cum[(size_t)(c0 + j) * a.Q];
+      if (k0 + j < a.nc) {
+        sv[j] = *reinterpret_cast<const float4*>(st + (size_t)(k0 + j) * NP_);
+        dec[j] = cum[(size_t)(k0 + j) * a.Q];
       }
 #pragma unroll
     for (int j = 0; j < PASS_C; ++j)
-      if (c0 + j < a.nc) {
+      if (k0 + j < a.nc) {
         uint32_t hi0, lo0, hi1, lo1;
         tc::split_bf16(hv.x, hv.y, hi0, lo0);
         tc::split_bf16(hv.z, hv.w, hi1, lo1);
-        bf16* hp = hin + (size_t)(c0 + j) * 2 * NP_;
+        bf16* hp = hin + (size_t)(k0 + j) * 2 * NP_;
         *reinterpret_cast<uint2*>(hp) = make_uint2(hi0, hi1);
         *reinterpret_cast<uint2*>(hp + NP_) = make_uint2(lo0, lo1);
         const float gc = expf(dec[j]);
@@ -546,12 +564,9 @@ ssd_pass_kernel(const Args a, int N_, int NP_) {
                          gc * hv.z + sv[j].z, gc * hv.w + sv[j].w);
       }
   }
-  // the chunk states are state^T (P x N); hT is (N x P)
-  const float hs[4] = {hv.x, hv.y, hv.z, hv.w};
-  const int P_ = NP_ / N_;
+  hs[0] = hv.x, hs[1] = hv.y, hs[2] = hv.z, hs[3] = hv.w;
 #pragma unroll
-  for (int q = 0; q < 4; ++q)
-    a.hT[bh * NP_ + ((e + q) % N_) * P_ + (e + q) / N_] = hs[q];
+  for (int q = 0; q < 4; ++q) hT[((e + q) % N_) * P_ + (e + q) / N_] = hs[q];
 }
 
 // (c) per (batch, head, chunk, query tile): y, one warpgroup of 64 rows
@@ -570,13 +585,14 @@ ssd_out_kernel(const Args a) {
   const int Q = a.Q;
   float* sDt = sCum + Q;
 
-  const int qt = blockIdx.x, h = blockIdx.y;
-  const int b = blockIdx.z / a.nc, c = blockIdx.z % a.nc;
+  const int nqt = (Q + KT - 1) / KT;
+  const int qt = blockIdx.x % nqt, h = blockIdx.x / nqt % a.H;
+  const int c = blockIdx.x / nqt / a.H, b = blockIdx.y;
   const int g = h / a.hpg;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gr = lane / 4, t4 = lane % 4;
   const int i0 = qt * KT, nq = min(KT, Q - i0);
-  const long long s0 = (long long)c * Q;
+  const long long s0 = (long long)(a.c0 + c) * Q;
   const bf16* xb = static_cast<const bf16*>(a.x) + b * a.xs_b + h * a.xs_h +
                    s0 * a.xs_s;
   const bf16* Bb = static_cast<const bf16*>(a.Bm) + b * a.bs_b +
@@ -589,16 +605,18 @@ ssd_out_kernel(const Args a) {
   // the C tile, key tile 0 and (after the first chunk) h_in^T hi and lo
   unsigned char* sHh = sStage + T::stage;
   unsigned char* sHl = sHh + T::h_tile;
+  const bool carry = a.c0 + c > 0;
   tc::load_swz<N, N, KT, TNT>(sC, Cb, a.cs_s, nq);
   load_key_tile<N, P>(a, sStage, Bb, xb, 0, min(KT, Q));
-  if (c > 0) {
-    const bf16* hin = a.hin + (bh * a.nc + c) * 2 * P * N;
+  if (carry) {
+    const bf16* hin = a.hin + (bh * a.win + c) * 2 * P * N;
     tc::load_swz<N, N, PP, TNT>(sHh, hin, N, P);
     tc::load_swz<N, N, PP, TNT>(sHl, hin + P * N, N, P);
   }
   tc::cp_async_commit();
+  const float* cum = a.cum + (bh * a.win + c) * Q;
   for (int i = threadIdx.x; i < i0 + nq; i += TNT) {
-    sCum[i] = a.cum[bh * a.S + s0 + i];
+    sCum[i] = cum[i];
     sDt[i] = dtb[i * a.dts_s];
   }
 
@@ -610,7 +628,7 @@ ssd_out_kernel(const Args a) {
   const int row0 = i0 + warp * 16 + gr;  // rows row0 and row0 + 8
 
   // inter-chunk first: y = exp(cum_i) (C h_in); the first chunk's h_in is 0
-  if (c > 0) {
+  if (carry) {
     tc::cp_async_wait<0>();
     tc::fence_proxy_async();
     __syncthreads();
@@ -732,9 +750,11 @@ int set_smem(const void* kern, size_t bytes) {
 }
 
 template <int N, int P>
-int launch(int dtype, const Args& a, int Bsz, cudaStream_t stream) {
+int launch(int dtype, Args a, int Bsz, cudaStream_t stream) {
   int limit = 0;
   if (int err = smem_limit(&limit)) return err;
+  const int nqt = (a.Q + KT - 1) / KT;
+  if (Bsz > 65535 || (long long)nqt * a.H * a.win > 0x7fffffffLL) return -3;
   if (dtype == 0) {
     const size_t smem = Layout<N, P>::bytes(a.Q);
     if (smem > size_t(limit)) return -2;
@@ -753,13 +773,18 @@ int launch(int dtype, const Args& a, int Bsz, cudaStream_t stream) {
     return err;
   if (int err = set_smem(reinterpret_cast<const void*>(kc), smem_c))
     return err;
-  ka<<<dim3(a.nc, a.H, Bsz), TNT, smem_a, stream>>>(a);
-  if (cudaError_t err = cudaGetLastError()) return int(err);
-  ssd_pass_kernel<<<dim3((N * P / 4 + PASS_NT - 1) / PASS_NT, Bsz * a.H),
-                    PASS_NT, 0, stream>>>(a, N, N * P);
-  if (cudaError_t err = cudaGetLastError()) return int(err);
-  kc<<<dim3((a.Q + KT - 1) / KT, a.H, Bsz * a.nc), TNT, smem_c, stream>>>(a);
-  return int(cudaGetLastError());
+  const int nc = a.nc;
+  for (a.c0 = 0; a.c0 < nc; a.c0 += a.win) {
+    a.nc = min(a.win, nc - a.c0);
+    ka<<<dim3(a.nc * a.H, Bsz), TNT, smem_a, stream>>>(a);
+    if (cudaError_t err = cudaGetLastError()) return int(err);
+    ssd_pass_kernel<<<dim3(Bsz * a.H, (N * P / 4 + PASS_NT - 1) / PASS_NT),
+                      PASS_NT, 0, stream>>>(a, N, N * P);
+    if (cudaError_t err = cudaGetLastError()) return int(err);
+    kc<<<dim3(nqt * a.H * a.nc, Bsz), TNT, smem_c, stream>>>(a);
+    if (cudaError_t err = cudaGetLastError()) return int(err);
+  }
+  return 0;
 }
 
 template <int N>
@@ -778,18 +803,19 @@ int dispatch_p(int P, int dtype, const Args& a, int Bsz, cudaStream_t s) {
 extern "C" {
 
 // One SSD forward: x, dt, A, Bm, Cm in; y and hT out; cum, states and hin
-// are scratch for the bf16 path (cum (Bsz * H, S) and states
-// (Bsz * H, S / Q, P, N) f32, hin (Bsz * H, S / Q, 2, P, N) bf16; unused
-// by the f32 path). strides[15], in elements: x (b, s, h), dt
-// (b, s, h), Bm (b, s, g), Cm (b, s, g), y (b, s, h). dtype: 0 = float32,
-// 1 = bfloat16. S must be a multiple of Q. Returns 0 on success, a
-// cudaError_t code if a launch was refused, -1 for an unsupported N or P,
-// or -2 when a chunk of Q rows needs more shared memory than a block may
-// have.
+// are scratch for the bf16 path, one window of `window` chunks (cum
+// (Bsz * H, window * Q) and states (Bsz * H, window, P, N) f32, hin
+// (Bsz * H, window, 2, P, N) bf16; unused by the f32 path). strides[15],
+// in elements: x (b, s, h), dt (b, s, h), Bm (b, s, g), Cm (b, s, g), y
+// (b, s, h). dtype: 0 = float32, 1 = bfloat16. S must be a multiple of Q.
+// Returns 0 on success, a cudaError_t code if a launch was refused, -1 for
+// an unsupported N or P, -2 when a chunk of Q rows needs more shared
+// memory than a block may have, -3 when a grid would be too large.
 int ssd_fwd(const void* x, const void* dt, const void* A, const void* Bm,
             const void* Cm, void* y, void* hT, void* cum, void* states,
             void* hin, int dtype, int Bsz, int S, int H, int heads_per_group,
-            int Q, int N, int P, const long long* strides, void* stream) {
+            int Q, int window, int N, int P, const long long* strides,
+            void* stream) {
   Args a;
   a.x = x;
   a.dt = static_cast<const float*>(dt);
@@ -801,11 +827,12 @@ int ssd_fwd(const void* x, const void* dt, const void* A, const void* Bm,
   a.cum = static_cast<float*>(cum);
   a.states = static_cast<float*>(states);
   a.hin = static_cast<bf16*>(hin);
-  a.S = S;
   a.H = H;
   a.hpg = heads_per_group;
   a.Q = Q;
   a.nc = S / Q;
+  a.c0 = 0;
+  a.win = window < 1 ? 1 : window;
   long long* dst[15] = {&a.xs_b, &a.xs_s, &a.xs_h, &a.dts_b, &a.dts_s,
                         &a.dts_h, &a.bs_b, &a.bs_s, &a.bs_g, &a.cs_b,
                         &a.cs_s, &a.cs_g, &a.ys_b, &a.ys_s, &a.ys_h};
@@ -823,6 +850,8 @@ int ssd_fwd(const void* x, const void* dt, const void* A, const void* Bm,
 const char* ssd_error_string(int code) {
   if (code == -1) return "unsupported N or P (16, 32, 64 or 128)";
   if (code == -2) return "chunk too long for the block's shared memory";
+  if (code == -3) return "grid too large (batch above 65535 or too many "
+                         "blocks in a window)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

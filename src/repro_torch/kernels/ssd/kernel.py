@@ -5,17 +5,22 @@ The kernel is ``csrc/ssd.cu`` (built by ``kernels._build`` at first use);
 see its header for the design. It reads the model's layout as it is: x
 (B, S, H, P) and dt (B, S, H) at any strides, B and C once per group
 (B, S, G, N). ``ssd_grouped`` is that entry; ``ssd_flat`` keeps the
-reference's flat per-head signature and hands the kernel strided views of
-its inputs (one batch, one head per group), so neither copies anything.
+reference's flat per-head signature and calls it on strided views of its
+inputs (one batch, one head per group), so neither copies anything.
 
 For a CUDA tensor a wrapper launches the kernel on the current stream or
 raises. For a CPU tensor, and only then, it computes the plain version
-(``ref.ssd_chunked_ref`` over the same chunks).
+(``ref.ssd_grouped_ref``: ``ssd_chunked_ref`` over the same chunks).
 
 ``launches`` counts wrapper calls that launched the kernel in this process
-(one call runs three CUDA kernels in bf16, one in float32); a caller that
-wants to show a run went through the kernel sets it to 0 before the run and
-reads it after.
+(one call runs three CUDA kernels for each window of chunks in bf16, one
+kernel in float32); a caller that wants to show a run went through the
+kernel sets it to 0 before the run and reads it after.
+
+The bf16 path keeps per-chunk scratch (the chunk states and each chunk's
+incoming state) for one window of chunks at a time; ``SCRATCH_BYTES``
+bounds it (or one chunk's worth, where that is more), whatever the number
+of chunks S / Q.
 """
 from __future__ import annotations
 
@@ -25,10 +30,11 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_grouped_ref
+from repro_torch.kernels.ssd.ref import ssd_grouped_ref
 
 STATE_DIMS = (16, 32, 64, 128)     # the N and P the kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SCRATCH_BYTES = 512 << 20          # the bf16 path's scratch, at most
 
 launches = 0
 
@@ -38,8 +44,8 @@ def _lib():
     lib = _build.load("ssd")
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.ssd_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i,
-                            i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong),
-                            vp]
+                            i, i, i, i, i, i,
+                            ctypes.POINTER(ctypes.c_longlong), vp]
     lib.ssd_fwd.restype = i
     lib.ssd_error_string.argtypes = [i]
     lib.ssd_error_string.restype = ctypes.c_char_p
@@ -66,6 +72,17 @@ def _check_types(x, dt, A, Bm, Cm):
                         f"{A.dtype}")
     if len({t.device for t in (x, dt, A, Bm, Cm)}) != 1:
         raise ValueError("x, dt, A, Bm, Cm on different devices")
+
+
+def window_chunks(BH: int, nc: int, Q: int, P: int, N: int) -> int:
+    """Chunks per window of the bf16 path: as many of the nc as fit their
+    scratch (cum, the f32 chunk state and the bf16 hi + lo incoming state
+    of each of the BH heads) in ``SCRATCH_BYTES``, at least one, spread
+    evenly over the windows."""
+    per_chunk = BH * (4 * Q + 8 * P * N)
+    most = max(1, min(nc, SCRATCH_BYTES // max(per_chunk, 1)))
+    windows = -(-nc // most)
+    return -(-nc // windows)
 
 
 def _check_grouped(x, dt, A, Bm, Cm):
@@ -106,13 +123,15 @@ def _launch(x, dt, A, Bm, Cm, y, Q: int) -> torch.Tensor:
     hT = torch.empty((B_, H, N, P), dtype=torch.float32, device=x.device)
     if B_ * H == 0:
         return hT
+    win = 1
     if x.dtype == torch.bfloat16:
-        # the cumsums, the chunk states (f32) and each chunk's incoming
-        # state as bf16 hi + lo, the last two as transposes (P, N)
+        # one window's cumsums, chunk states (f32) and incoming states as
+        # bf16 hi + lo, the last two as transposes (P, N)
+        win = window_chunks(B_ * H, S // Q, Q, P, N)
         f32 = dict(dtype=torch.float32, device=x.device)
-        cum = torch.empty((B_ * H, S), **f32)
-        states = torch.empty((B_ * H, S // Q, P, N), **f32)
-        hin = torch.empty((B_ * H, S // Q, 2, P, N), dtype=torch.bfloat16,
+        cum = torch.empty((B_ * H, win * Q), **f32)
+        states = torch.empty((B_ * H, win, P, N), **f32)
+        hin = torch.empty((B_ * H, win, 2, P, N), dtype=torch.bfloat16,
                           device=x.device)
         scratch = (cum.data_ptr(), states.data_ptr(), hin.data_ptr())
     else:
@@ -126,7 +145,7 @@ def _launch(x, dt, A, Bm, Cm, y, Q: int) -> torch.Tensor:
         err = lib.ssd_fwd(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                           Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
                           hT.data_ptr(), *scratch, _DTYPES[x.dtype], B_, S,
-                          H, H // G, Q, N, P, strides, stream)
+                          H, H // G, Q, win, N, P, strides, stream)
     if err != 0:
         raise RuntimeError("ssd kernel launch failed: "
                            + lib.ssd_error_string(err).decode())
@@ -134,40 +153,40 @@ def _launch(x, dt, A, Bm, Cm, y, Q: int) -> torch.Tensor:
     return hT
 
 
-def ssd_grouped(x, dt, A, Bm, Cm, *, chunk: int = 128):
+def ssd_grouped(x, dt, A, Bm, Cm, *, chunk: int = 128, out=None):
     """Model layout: x (B, S, H, P) and dt (B, S, H) f32 at any strides,
     A (H,) f32, Bm and Cm (B, S, G, N) per group, head h reading group
     h // (H / G). Returns (y (B, S, H, P) in x's dtype, hT (B, H, N, P)
-    f32), from a zero state."""
+    f32), from a zero state; y is written into ``out`` when given (any
+    strides, the last dim contiguous)."""
     _check_grouped(x, dt, A, Bm, Cm)
+    if out is not None and (out.shape != x.shape or out.dtype != x.dtype
+                            or out.device != x.device):
+        raise ValueError(f"out must match x: {tuple(out.shape)} "
+                         f"{out.dtype} {out.device}")
     Q = chunk_len(x.shape[1], chunk)
     if x.device.type == "cpu":
-        return ssd_grouped_ref(x, dt, A, Bm, Cm, chunk=Q)
-    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        y, hT = ssd_grouped_ref(x, dt, A, Bm, Cm, chunk=Q)
+        return (y, hT) if out is None else (out.copy_(y), hT)
+    y = out if out is not None else torch.empty(x.shape, dtype=x.dtype,
+                                                device=x.device)
     return y, _launch(x, dt, A, Bm, Cm, y, Q)
 
 
 def ssd_flat(x, dt, A, Bm, Cm, *, chunk: int = 128):
     """x: (BH, S, P); dt: (BH, S) f32; A: (BH,) f32; Bm, Cm: (BH, S, N).
     Returns (y (BH, S, P) in x's dtype, hT (BH, N, P) f32), from a zero
-    state."""
-    if x.dim() != 3 or Bm.dim() != 3 or Cm.shape != Bm.shape:
-        raise ValueError(f"expected x (BH,S,P), Bm = Cm (BH,S,N); got "
-                         f"{tuple(x.shape)}, {tuple(Bm.shape)}, "
-                         f"{tuple(Cm.shape)}")
-    BH, S, _ = x.shape
-    if Bm.shape[:2] != (BH, S) or dt.shape != (BH, S) or A.shape != (BH,):
-        raise ValueError(f"shapes disagree: x {tuple(x.shape)}, dt "
-                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, Bm "
+    state: ``ssd_grouped`` on views of one batch of BH heads, one head
+    per group."""
+    if x.dim() != 3 or Bm.dim() != 3 or dt.dim() != 2:
+        raise ValueError(f"expected x (BH,S,P), dt (BH,S), Bm = Cm (BH,S,N); "
+                         f"got {tuple(x.shape)}, {tuple(dt.shape)}, "
                          f"{tuple(Bm.shape)}")
-    _check_types(x, dt, A, Bm, Cm)
-    Q = chunk_len(S, chunk)
-    if x.device.type == "cpu":
-        return ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=Q)
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
 
     def model(t):        # (BH, S, ...) as one batch of BH heads: a view
         return t.transpose(0, 1).unsqueeze(0)
 
-    hT = _launch(model(x), model(dt), A, model(Bm), model(Cm), model(y), Q)
+    _, hT = ssd_grouped(model(x), model(dt), A, model(Bm), model(Cm),
+                        chunk=chunk, out=model(y))
     return y, hT[0]

@@ -25,8 +25,8 @@ from repro_torch.models.common import (Params, _normal, apply_norm, dense,
 
 # --------------------------------------------------------------------------
 # SSD cores. x:(B,S,H,P) dt:(B,S,H) A:(H,) Bm,Cm:(B,S,H,N) (groups already
-# broadcast to heads; the kernel, ``pallas``, takes them per group,
-# (B,S,G,N)). Return y:(B,S,H,P) and final state (B,H,N,P) f32.
+# broadcast to heads). Return y:(B,S,H,P) and final state (B,H,N,P) f32.
+# The ``ssd`` dispatch takes Bm,Cm per group, (B,S,G,N).
 # --------------------------------------------------------------------------
 
 def ssd_scan(x, dt, A, Bm, Cm, h0=None):
@@ -94,13 +94,18 @@ def ssd_decode_step(h, x, dt, A, Bm, Cm):
 
 
 def ssd(x, dt, A, Bm, Cm, *, impl: str, chunk: int = 256, h0=None):
+    """Bm, Cm: (B,S,G,N) per group, G dividing H. The kernel (``pallas``)
+    reads them so; ``scan`` and ``chunked`` broadcast them to heads, as
+    the reference does."""
+    if impl == "pallas":
+        from repro_torch.kernels.ssd import ops as ssd_ops
+        return ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+    H = x.shape[2]
+    Bm, Cm = _broadcast_groups(Bm, H), _broadcast_groups(Cm, H)
     if impl == "scan":
         return ssd_scan(x, dt, A, Bm, Cm, h0)
     if impl == "chunked":
         return ssd_chunked(x, dt, A, Bm, Cm, h0, chunk=chunk)
-    if impl == "pallas":
-        from repro_torch.kernels.ssd import ops as ssd_ops
-        return ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
     raise ValueError(impl)
 
 
@@ -174,14 +179,11 @@ def _split_proj(zxbcdt, cfg: ModelConfig):
     return torch.split(zxbcdt, [d_inner, d_inner, gn, gn, H], dim=-1)
 
 
-def _broadcast_groups(t, cfg: ModelConfig):
-    """(B,S,G*N) -> (B,S,H,N) broadcasting groups over heads."""
-    s: SSMCfg = cfg.ssm
-    _, H, _ = mamba_dims(cfg)
-    B_, S = t.shape[:2]
-    t = t.reshape(B_, S, s.ngroups, 1, s.d_state)
-    return t.expand(B_, S, s.ngroups, H // s.ngroups, s.d_state).reshape(
-        B_, S, H, s.d_state)
+def _broadcast_groups(t, H: int):
+    """(B,S,G,N) -> (B,S,H,N) broadcasting groups over heads."""
+    B_, S, G, N = t.shape
+    return t[:, :, :, None, :].expand(B_, S, G, H // G, N).reshape(
+        B_, S, H, N)
 
 
 def _dt_A(dtr, p: Params):
@@ -209,14 +211,9 @@ def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
         xbc, [d_inner, s.ngroups * s.d_state, s.ngroups * s.d_state], dim=-1)
     xh = xin.reshape(B_, S, H, s.headdim)
     dt, A = _dt_A(dtr, p)
-    if cfg.ssd_impl == "pallas":
-        # the kernel reads each group's B and C and the strided x itself
-        gshape = (B_, S, s.ngroups, s.d_state)
-        Bs, Cs = B_r.reshape(gshape), C_r.reshape(gshape)
-    else:
-        Bs, Cs = _broadcast_groups(B_r, cfg), _broadcast_groups(C_r, cfg)
-
-    y, hT = ssd(xh, dt, A, Bs, Cs, impl=cfg.ssd_impl, chunk=s.chunk_size)
+    gshape = (B_, S, s.ngroups, s.d_state)
+    y, hT = ssd(xh, dt, A, B_r.reshape(gshape), C_r.reshape(gshape),
+                impl=cfg.ssd_impl, chunk=s.chunk_size)
     y = y + xh * p["D"].to(y.dtype)[:, None]
     y = y.reshape(B_, S, d_inner)
     y = apply_norm(p["norm"], y * F.silu(z), "rmsnorm", cfg.norm_eps)

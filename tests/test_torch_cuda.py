@@ -157,10 +157,12 @@ SSD_CASES = [
     (2, 512, 64, 128, 256, torch.float32, False),
     (2, 512, 64, 128, 256, torch.bfloat16, False),
     # ragged S: the chunk halves to 8; S < chunk (Q = 100, not a multiple
-    # of the 64-row tile); odd S > chunk (Q = 1)
+    # of the 64-row tile); odd S > chunk (Q = 1); S = 2 mod 4 (Q = 2)
     (2, 200, 32, 32, 64, torch.float32, False),
     (2, 100, 64, 128, 256, torch.bfloat16, False),
     (1, 129, 16, 16, 64, torch.float32, False),
+    (2, 129, 64, 128, 256, torch.bfloat16, False),
+    (2, 130, 64, 128, 256, torch.bfloat16, False),
     # exp(cum_i - cum_j) overflows above the diagonal: no NaN may leak
     (2, 256, 64, 128, 256, torch.float32, True),
     (2, 256, 64, 128, 256, torch.bfloat16, True),
@@ -252,6 +254,69 @@ def test_ssd_grouped_strided_vs_plain(cuda, B_, S, H, G, P, N, chunk,
     tol = SSD_F32_TOL if dtype == torch.float32 else SSD_BF16_TOL
     assert (flat(y).float() - y_p.float()).abs().max().item() < tol
     assert (hT.reshape(B_ * H, N, P) - h_p).abs().max().item() < tol
+
+
+def _grouped_vs_scan(x, dt, A, Bm, Cm, y, hT):
+    """Max abs errors of the kernel's (y, hT) against ssd_scan_ref on the
+    broadcast, flat tensors."""
+    B_, S, H, P = x.shape
+    R = H // Bm.shape[2]
+    def flat(t):
+        return t.permute(0, 2, 1, 3).reshape(B_ * H, S, t.shape[-1])
+    y_p, h_p = ssd_scan_ref(flat(x), dt.permute(0, 2, 1).reshape(B_ * H, S),
+                            A.repeat(B_), flat(Bm.repeat_interleave(R, 2)),
+                            flat(Cm.repeat_interleave(R, 2)))
+    return ((flat(y).float() - y_p.float()).abs().max().item(),
+            (hT.reshape(B_ * H, *hT.shape[2:]) - h_p).abs().max().item())
+
+
+@pytest.mark.parametrize("S", [8191, 8190])
+def test_ssd_serving_width_short_chunks(cuda, S):
+    """mamba2-2.7b's width (B = 4, H = 80, one group, P = 64, N = 128) at
+    prompt lengths whose chunk rule gives Q = 1 (odd S) and Q = 2: the
+    scratch stays within one window's budget, and the result agrees with
+    the sequential scan."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    args = _packed_model_layout(gen, 4, S, 80, 1, 64, 128, torch.bfloat16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y, hT = ssd_ops.ssd(*args, chunk=256)
+    torch.cuda.synchronize()
+    outputs = y.numel() * y.element_size() + hT.numel() * 4
+    assert torch.cuda.max_memory_allocated() - base <= (
+        outputs + sk.SCRATCH_BYTES + (64 << 20))
+    assert bool(torch.isfinite(y.float()).all() and torch.isfinite(hT).all())
+    err_y, err_h = _grouped_vs_scan(*args, y, hT)
+    assert err_y < SSD_BF16_TOL and err_h < SSD_BF16_TOL
+
+
+def test_ssd_windows_agree_with_one_window(cuda, monkeypatch):
+    """A scratch budget of about two chunks splits the call into windows
+    whose state passes through hT in f32: the result is the one-window
+    result, bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    args = _packed_model_layout(gen, 2, 512, 8, 2, 64, 128, torch.bfloat16)
+    y1, h1 = ssd_ops.ssd(*args, chunk=64)
+    BH, Q = 16, 64
+    monkeypatch.setattr(sk, "SCRATCH_BYTES", 2 * BH * (4 * Q + 8 * 64 * 128))
+    assert sk.window_chunks(BH, 8, Q, 64, 128) == 2
+    y4, h4 = ssd_ops.ssd(*args, chunk=64)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y4) and torch.equal(h1, h4)
+    err_y, err_h = _grouped_vs_scan(*args, y4, h4)
+    assert err_y < SSD_BF16_TOL and err_h < SSD_BF16_TOL
+
+
+def test_ssd_many_short_chunks_fit_the_grid(cuda):
+    """B * (S / Q) = 9 * 8191 chunks, past the 65535 of a grid's y and z
+    axes: the kernel still launches and agrees with the scan."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    args = _packed_model_layout(gen, 9, 8191, 2, 1, 16, 16, torch.bfloat16)
+    y, hT = ssd_ops.ssd(*args, chunk=256)
+    torch.cuda.synchronize()
+    err_y, err_h = _grouped_vs_scan(*args, y, hT)
+    assert err_y < SSD_BF16_TOL and err_h < SSD_BF16_TOL
 
 
 def test_ssd_kernel_path_copies_nothing(cuda):

@@ -216,6 +216,29 @@ def test_mamba_apply_kernel_path_matches_reference(ngroups, monkeypatch):
     assert not (xh.is_contiguous() or Bm.is_contiguous())
 
 
+@pytest.mark.parametrize("BH,nc,Q,P,N", [
+    (320, 32, 256, 64, 128),      # mamba2-2.7b prefill, 8192 tokens
+    (320, 8191, 1, 64, 128),      # an odd prompt: Q = 1
+    (320, 4095, 2, 64, 128),      # S = 2 mod 4: Q = 2
+    (320, 1025, 8, 64, 128),      # S = 8200: Q = 8
+    (4, 3, 100, 16, 16),          # a short prompt: one window
+    (100000, 4, 256, 128, 128),   # one chunk alone is over the budget
+])
+def test_scratch_windows_stay_within_budget(BH, nc, Q, P, N):
+    """The bf16 path's scratch holds one window of chunks: at most
+    SCRATCH_BYTES (or one chunk's worth), whatever nc is, and the windows
+    cover the nc chunks evenly."""
+    win = sk.window_chunks(BH, nc, Q, P, N)
+    per_chunk = BH * (4 * Q + 8 * P * N)
+    assert 1 <= win <= nc
+    assert win * per_chunk <= max(sk.SCRATCH_BYTES, per_chunk)
+    windows = -(-nc // win)
+    # only the last window is short, by fewer chunks than there are windows
+    assert windows * win - nc < windows
+    if nc * per_chunk <= sk.SCRATCH_BYTES:
+        assert win == nc
+
+
 def test_kernel_path_refuses_initial_state_and_bad_inputs():
     _, t = _both(_inputs(4, 2, 32, 16, 16), False)
     x, dt, A, Bm, Cm = t

@@ -31,9 +31,16 @@ failures is caught:
    8192-token prompt and 16 greedy steps; the prefill logits against the
    chunked SSD path; a reduced mamba2 in float32 whose tokens must match
    the scan path exactly.
+5. train the paper's LeNet with CPSL (Alg. 1) through ``CPSLTrainer`` at
+   the paper's configuration (30 devices, 6 clusters of 5, batch 16) on
+   synthetic non-IID MNIST: SAA cut selection, then 8 rounds with Gibbs
+   clustering, looped and fused. It launches no hand-written kernel (the
+   reference's training path has no Pallas kernel); it checks fused
+   against looped, the card against the CPU for one round, a fused round
+   with no host sync, and that the loss falls.
 
-Prints one ``{"kernels": [...]}`` line and, last, the device line
-``{"ok": true, "device": {...}}``.
+Prints one ``{"train": {...}}`` line, one ``{"kernels": [...]}`` line and,
+last, the device line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -601,6 +608,170 @@ def mamba_serve_phase() -> dict:
     return serve(cfg, cfg.replace(ssd_impl="chunked"), MAMBA_PROMPT, "ssd")
 
 
+# --------------------------------------------------------------------------
+# 5. train: the paper's LeNet with CPSL (Alg. 1) through CPSLTrainer
+# --------------------------------------------------------------------------
+
+TRAIN_ROUNDS = 8
+# fused vs looped round on the card, per leaf, x max(1, max|leaf|): the
+# same kernels on the same data with cuDNN's deterministic algorithms
+FUSED_LOOPED_TOL = 1e-6
+# one paper-config round, card vs CPU, per leaf, x max(1, max|leaf|), and
+# the round's loss: tests/test_torch_cpsl.py's ATOL_PAPER (sums in another
+# order move activations across ReLU zeros and max-pool ties)
+CARD_CPU_TOL, CARD_CPU_LOSS_RTOL = 1e-3, 1e-4
+
+
+def _max_leaf_err(a, b) -> float:
+    from repro_torch import tree
+    return max(float((x.double().cpu() - y.double().cpu()).abs().max())
+               / max(1.0, float(x.double().abs().max()))
+               for x, y in zip(tree.leaves(a), tree.leaves(b)))
+
+
+def train_phase() -> dict:
+    """The quickstart's first half at the paper's configuration: synthetic
+    non-IID MNIST (8000 train, 1500 test; 30 devices x 180 samples of 3
+    classes), SAA cut selection (Alg. 2), then ``CPSLTrainer`` for 8 rounds
+    with Gibbs clustering (80 iterations) and M = 6 clusters of K = 5, B =
+    16, L = 1 — looped, then fused, from one initial state. Checks, none
+    caught: fused and looped agree per leaf (cuDNN deterministic); one
+    round on the card agrees with the same round on the CPU; the fused
+    round runs under ``set_sync_debug_mode("error")``; the loss after 8
+    rounds is below the first round's."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch import streams, tree
+    from repro_torch.configs.base import CPSLConfig
+    from repro_torch.core.channel import NetworkCfg
+    from repro_torch.core.cpsl import CPSL, to_device
+    from repro_torch.core.profile import lenet_profile
+    from repro_torch.core.resource import saa_cut_selection
+    from repro_torch.core.splitting import make_split_model
+    from repro_torch.data.pipeline import CPSLDataset, batch_seed
+    from repro_torch.data.synthetic import non_iid_split, synthetic_mnist
+    from repro_torch.models import lenet
+    from repro_torch.train.trainer import CPSLTrainer, TrainerCfg
+    dev = torch.device("cuda")
+    M, K, B, L = 6, 5, 16, 1
+
+    xtr, ytr, xte, yte = synthetic_mnist(8000, 1500, seed=0)
+    idx = non_iid_split(ytr, n_devices=M * K, samples_per_device=180)
+    ds = CPSLDataset(xtr, ytr, idx, batch=B)
+    ncfg, prof = NetworkCfg(n_devices=M * K), lenet_profile()
+    t0 = time.perf_counter()
+    v, means = saa_cut_selection(prof, ncfg, B=B, L=L, n_clusters=M,
+                                 cluster_size=K, n_samples=3, gibbs_iters=60)
+    saa_s = time.perf_counter() - t0
+    log(f"train: SAA cut v* = {v} ({lenet.LAYERS[v - 1]}) in {saa_s:.1f} s")
+    xte_d, yte_d = torch.from_numpy(xte).to(dev), torch.from_numpy(yte).to(dev)
+
+    def eval_fn(cp, state):
+        params, _ = cp.export_params(state)
+        return lenet.accuracy(params, xte_d, yte_d)
+
+    def cpsl(fused):
+        return CPSL(make_split_model("lenet", v), CPSLConfig(
+            cut_layer=v, n_clusters=M, cluster_size=K, local_epochs=L,
+            batch_per_device=B, fused_round=fused))
+
+    state0 = cpsl(False).init_state(streams.model_generator(0, dev))
+    modules = _kernel_modules()       # this path runs no hand kernel
+    for m in modules.values():
+        m.launches = 0
+    ckpt_root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    torch.backends.cudnn.deterministic = True
+    runs, out = {}, {"cut": v, "saa_s": saa_s, "saa_means_s": means.tolist(),
+                     "rounds": TRAIN_ROUNDS, "config": {
+                         "N": M * K, "M": M, "K": K, "B": B, "L": L,
+                         "n_train": len(xtr), "n_test": len(xte),
+                         "gibbs_iters": 80, "cudnn_deterministic": True}}
+    for mode in ("looped", "fused"):
+        trainer = CPSLTrainer(
+            cpsl(mode == "fused"), ds, prof, ncfg, TrainerCfg(
+                rounds=TRAIN_ROUNDS, ckpt_every=TRAIN_ROUNDS,
+                ckpt_dir=str(ckpt_root / mode), resource_mgmt="gibbs",
+                gibbs_iters=80), eval_fn=eval_fn, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        state = trainer.run(state=tree.map(torch.clone, state0), v=v)
+        h = trainer.history
+        wall = [1e3 * r["wall_s"] for r in h]
+        train_ms = [1e3 * (r["wall_s"] - r["plan_s"]) for r in h]
+        out[mode] = {
+            "wall_ms": wall, "plan_ms": [1e3 * r["plan_s"] for r in h],
+            "train_ms": train_ms,
+            "ms_per_step": [t / (M * L) for t in train_ms],
+            "loss": [r["loss"] for r in h], "acc": [r["eval"] for r in h],
+            "sim_latency_s": [r["sim_latency_s"] for r in h],
+            "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+        if not h[-1]["loss"] < h[0]["loss"]:
+            raise AssertionError(f"{mode}: loss after {TRAIN_ROUNDS} rounds "
+                                 f"{h[-1]['loss']} is not below the first "
+                                 f"round's {h[0]['loss']}")
+        runs[mode] = (trainer, state)
+        log(f"train {mode}: " + json.dumps(out[mode]))
+    out["hand_kernel_launches"] = {n: m.launches for n, m in modules.items()}
+    err = _max_leaf_err(runs["looped"][1], runs["fused"][1])
+    out["fused_vs_looped_max_rel_err"] = err
+    if not err <= FUSED_LOOPED_TOL:
+        raise AssertionError(f"fused vs looped states: {err} > "
+                             f"{FUSED_LOOPED_TOL}")
+
+    # one round on the card against the same round on the CPU
+    looped, fused = runs["looped"][0], runs["fused"][0]
+    clusters, _, _ = looped._plan_round(v, 0)
+    sizes = np.stack([ds.data_sizes(c) for c in clusters])
+
+    def batch_fn(device):
+        return lambda m, l: {k: to_device(a, device) for k, a in
+                             ds.cluster_batch(clusters[m], seed=batch_seed(
+                                 0, 0, m, l)).items()}
+
+    s_card, m_card = looped.cpsl.run_round(
+        tree.map(torch.clone, state0), batch_fn(dev), data_sizes=sizes)
+    s_cpu, m_cpu = looped.cpsl.run_round(
+        tree.map(lambda t: t.cpu(), state0), batch_fn("cpu"),
+        data_sizes=sizes)
+    err = _max_leaf_err(s_cpu, s_card)
+    out["card_vs_cpu"] = {"max_rel_err": err, "loss_card": m_card["loss"],
+                          "loss_cpu": m_cpu["loss"]}
+    if not err <= CARD_CPU_TOL or not abs(
+            m_card["loss"] - m_cpu["loss"]) <= CARD_CPU_LOSS_RTOL * abs(
+            m_cpu["loss"]):
+        raise AssertionError("card vs CPU round: " + json.dumps(
+            out["card_vs_cpu"]))
+
+    # the fused round with no host sync, then one profiled round each way
+    dsd = fused._ds_dev
+    table = to_device(dsd.round_index_table(clusters, 0, 0, L), dev)
+    weights = to_device(dsd.cluster_weights(clusters), dev, torch.float32)
+    state = tree.map(torch.clone, state0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, mt = fused.cpsl.run_round_fused(state, dsd.data, table,
+                                               weights)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out["fused_round_host_syncs"] = 0
+    if not bool(torch.isfinite(mt["loss"])):
+        raise AssertionError("non-finite fused-round loss")
+    out["profile"] = {
+        "fused_round": device_profile(lambda: fused.cpsl.run_round_fused(
+            tree.map(torch.clone, state0), dsd.data, table, weights)),
+        "looped_round": device_profile(lambda: looped.cpsl.run_round(
+            tree.map(torch.clone, state0), batch_fn(dev),
+            data_sizes=sizes))}
+    out["device_busy_share"] = {k: p["busy_share"]
+                                for k, p in out["profile"].items()}
+    torch.backends.cudnn.deterministic = False
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    return out
+
+
 def device_profile(fn, top: int = 8) -> dict:
     """One call of ``fn`` under torch.profiler: its host wall time, the
     device time summed over the kernels it ran (one stream, so the sum is
@@ -653,6 +824,7 @@ def main() -> int:
     ssd_short = ssd_short_chunks()
     gemma = gemma_serve_phase()
     mamba = mamba_serve_phase()
+    train = train_phase()
 
     def mean(key):
         return sum(r[key] for r in shapes) / len(shapes)
@@ -690,6 +862,7 @@ def main() -> int:
         "library_call": "none: no single PyTorch call computes the SSD scan",
         "shape": ssd_model["shape"], "flat_shape": ssd_flat_row["shape"],
         "short_chunks": ssd_short, "sweep_max_abs_err": ssd_worst}]
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Model config dataclasses (the port's own copy of ``repro.configs.base``'s
-model part; the CPSL, fleet, simulator and mesh configs come with their
-slices).
+model part and ``CPSLConfig``; the fleet, simulator and mesh configs come
+with their slices).
 
 A ModelConfig fully describes one architecture in the zoo. Layer stacks are
 an optional unrolled ``prologue`` followed by a periodic ``pattern``
@@ -130,3 +130,44 @@ class ModelConfig:
     def layer_specs(self) -> Tuple[LayerSpec, ...]:
         """Flattened per-layer specs, prologue first."""
         return self.prologue + self.pattern * self.n_periods
+
+
+@dataclass(frozen=True)
+class CPSLConfig:
+    """Cluster-based Parallel Split Learning hyper-parameters (paper §IV)."""
+    cut_layer: int = 2               # v: blocks [0, v) are device-side
+    n_clusters: int = 6              # M
+    cluster_size: int = 5            # K_m devices per cluster
+    local_epochs: int = 1            # L
+    lr_device: float = 0.05          # eta_d
+    lr_server: float = 0.25          # eta_e
+    batch_per_device: int = 16       # B
+    optimizer: str = "sgd"           # sgd | momentum | adamw
+    momentum: float = 0.0
+    weight_decay: float = 0.0
+    fused_step: bool = True          # fused autodiff vs explicit 2-phase protocol
+    fused_round: bool = False        # trainers use CPSL.run_round_fused
+                                     # (device-resident data, batches
+                                     # gathered on the device, FedAvg at
+                                     # each cluster boundary, no host sync)
+                                     # instead of the looped run_round
+    fused_round_unroll: int = 0      # the reference's scan unroll; the port
+                                     # runs the cluster axis as a Python loop
+                                     # and keeps the field for config parity
+    unroll_clients: bool = False     # K-client device pass as a Python loop
+                                     # over clients instead of
+                                     # torch.func.vmap over the K-stacked
+                                     # weights (grouped convolutions)
+    microbatches: int = 1            # grad-accumulation splits of B
+    share_device_params: bool = False  # L==1 fast path (beyond-paper)
+    straggler_dropout: float = 0.0   # fraction of clients allowed to miss FedAvg
+    compress_uploads: str = "none"   # none | topk | int8 (device-model uploads)
+    compress_topk: float = 0.1
+    scan_rounds: bool = False        # the reference's scanned round axis
+                                     # (run_training_fused, slice 3b); kept
+                                     # for config parity
+    conv_impl: str = "direct"        # lenet conv: "direct" (F.conv2d) |
+                                     # "im2col" (9 slices + one matmul); same
+                                     # params, consumed by
+                                     # make_split_model("lenet", v,
+                                     # conv_impl=...)

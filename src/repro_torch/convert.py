@@ -1,4 +1,5 @@
-"""Parameter trees from the reference package into the port.
+"""Parameter and CPSL-state trees between the reference package and the
+port.
 
 The reference's trees (``jax.device_get`` gives numpy arrays) keep their
 structure and their ``(d_in, d_out)`` weight orientation, so ``x @ w``
@@ -29,3 +30,25 @@ def params_from_numpy(tree, device, dtype=None):
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device, dtype) for v in tree]
     return _tensor(tree, device, dtype)
+
+
+def cpsl_state_from_numpy(state, device):
+    """A reference CPSL state (``jax.device_get`` of it, or a checkpoint's
+    numpy tree) as the port's: every leaf keeps its dtype, so ``rng`` stays
+    uint32[2] and ``step`` int32, conv weights stay HWIO, and tuples (sgd's
+    empty optimizer state) stay tuples."""
+    if isinstance(state, dict):
+        return {k: cpsl_state_from_numpy(v, device) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(cpsl_state_from_numpy(v, device) for v in state)
+    return _tensor(state, device, None)
+
+
+def cpsl_state_to_numpy(state):
+    """The port's CPSL state as numpy arrays of the same dtypes, ready for
+    ``jax.numpy.asarray`` in the reference."""
+    if isinstance(state, dict):
+        return {k: cpsl_state_to_numpy(v) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(cpsl_state_to_numpy(v) for v in state)
+    return state.detach().cpu().numpy()

@@ -1,0 +1,111 @@
+"""Cut-layer splitting: device-side and server-side sub-models (paper
+§III/IV); the port of ``repro.core.splitting``.
+
+A ``SplitModel`` bundles:
+    init_device(generator) / init_server(generator)
+    device_apply(dev_params, batch)         -> (smashed, aux)
+    device_apply_clients(dev_K, batch_K)    -> the same for K clients at
+                                               once (K-stacked params)
+    server_loss(srv_params, smashed, batch) -> (loss, aux)
+    export(dev_params, srv_params)          -> (assembled params, cfg)
+    smashed_spec(batch_size, seq)           -> a ``meta`` tensor of the
+                                               smashed data's shape/dtype
+
+This slice ports the paper's LeNet (layer-granular Table III split). The
+LM and enc-dec splits come with ROADMAP slices 4 and 6.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import lenet as ln
+
+
+@dataclass(frozen=True)
+class SplitModel:
+    kind: str
+    cfg: Optional[ModelConfig]
+    v: int
+    n_cuts: int
+    init_device: Callable
+    init_server: Callable
+    device_apply: Callable          # (dev_params, batch) -> (smashed, aux)
+    device_apply_clients: Callable  # K-stacked params and (K, B, ..) batch
+                                    # -> (smashed (K, B, ..), aux (K,))
+    server_loss: Callable           # (srv, smashed, batch) -> (loss, aux)
+    export: Callable                # (dev, srv) -> (params, cfg)
+    smashed_spec: Callable          # (batch_size, seq) -> meta tensor
+    eval_metrics: Optional[Callable] = None
+    # (dev, srv, eval_batch) -> {"acc", "loss"} device tensors
+    masked_loss: bool = False
+    # True when server_loss implements the reserved per-sample
+    # ``batch["sample_weight"]`` semantics of padded layouts
+
+
+def make_lenet_split(v: int, input_hw: int = 28,
+                     conv_impl: str = "direct") -> SplitModel:
+    """``conv_impl``: "direct" (``F.conv2d``) or "im2col" (9 slices + one
+    matmul). Params are identical between the two."""
+    def init_device(generator):
+        return ln.split_params(ln.init(generator, input_hw), v)[0]
+
+    def init_server(generator):
+        return ln.split_params(ln.init(generator, input_hw), v)[1]
+
+    def device_apply(dev, batch):
+        x = ln.apply_range(dev, batch["image"], 0, v, conv_impl)
+        return x, x.new_zeros(())
+
+    def device_apply_clients(dev, batch):
+        x = ln.apply_range_clients(dev, batch["image"], 0, v, conv_impl)
+        return x, x.new_zeros(x.shape[:1])
+
+    def server_loss(srv, smashed, batch):
+        logits = ln.apply_range(srv, smashed, v, ln.N_LAYERS, conv_impl)
+        nll = ln.nll(logits, batch["label"])
+        zero = nll.new_zeros(())
+        weight = batch.get("sample_weight")
+        if weight is None:
+            return nll.mean(), zero
+        # padded client slots carry exactly zero weight, so their data
+        # never reaches loss or gradients
+        w = weight.reshape(-1).to(nll.dtype)
+        return (nll[:, 0] * w).sum() / torch.clamp_min(w.sum(), 1.0), zero
+
+    def export(dev, srv):
+        return ln.merge_params(dev, srv), None
+
+    def smashed_spec(batch_size, seq=None):
+        shp = ln.layer_shapes(input_hw)[v - 1]
+        return torch.empty((batch_size,) + tuple(shp), dtype=torch.float32,
+                           device="meta")
+
+    def eval_metrics(dev, srv, batch):
+        """Test-set metrics on the device; the host equivalent is export
+        followed by ``lenet.accuracy``."""
+        smashed = ln.apply_range(dev, batch["image"], 0, v, conv_impl)
+        logits = ln.apply_range(srv, smashed, v, ln.N_LAYERS, conv_impl)
+        acc = (logits.argmax(-1) == batch["label"]).float().mean()
+        return {"acc": acc, "loss": ln.nll(logits, batch["label"]).mean()}
+
+    return SplitModel("lenet", None, v, ln.N_LAYERS - 1, init_device,
+                      init_server, device_apply, device_apply_clients,
+                      server_loss, export,
+                      smashed_spec, eval_metrics, masked_loss=True)
+
+
+def make_split_model(cfg_or_name, v: int, **kw) -> SplitModel:
+    if cfg_or_name == "lenet" or cfg_or_name is None:
+        return make_lenet_split(v, **kw)
+    cfg: ModelConfig = cfg_or_name
+    if cfg.family == "cnn":
+        return make_lenet_split(v, **kw)
+    if cfg.encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: the enc-dec split comes with ROADMAP slice 6")
+    raise NotImplementedError(
+        f"{cfg.name}: the LM split comes with ROADMAP slice 4")

@@ -1,21 +1,231 @@
-"""Random streams of the port: ``torch.Generator`` roots.
+"""Random streams of the port.
 
-Counterparts of ``repro.streams.model_key`` and ``repro.streams.sampler_key``.
-A torch generator does not reproduce JAX's threefry draws from the same
-seed, so tests that compare the two packages make their inputs with numpy
-and convert the reference's parameters instead of drawing them here. The
-NumPy stream registry comes with the CPSL slice.
+Two kinds:
+
+- ``torch.Generator`` roots (``model_generator``, ``sampler_generator``),
+  counterparts of ``repro.streams.model_key`` and ``sampler_key``. A torch
+  generator does not reproduce JAX's threefry draws from the same seed, so
+  tests that compare the two packages make their inputs with numpy and
+  convert the reference's parameters instead of drawing them here.
+- The NumPy stream registry the CPSL control plane draws from, copied
+  from ``repro.streams`` with its positions and formulas unchanged, so the
+  port's planner decisions, index tables and batches are bit-identical to
+  the reference's. ``registry_overlaps`` proves the tuple pool disjoint;
+  the port's own streams (``straggler``) are registered beside copies of
+  every reference pattern, so they cannot alias one of them.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional, Tuple, Union
+
+import numpy as np
 import torch
 
 
 def model_generator(seed: int, device="cuda") -> torch.Generator:
-    """Model-parameter init root for ``models.api.init``."""
+    """Model-parameter init root for ``models.api.init`` and
+    ``core.cpsl.CPSL.init_state``."""
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
 def sampler_generator(seed: int, device="cuda") -> torch.Generator:
     """Prompt and token-sampling root for the serving demo."""
     return torch.Generator(device=device).manual_seed(int(seed))
+
+
+# --------------------------------------------------------------------------
+# registry machinery (as in repro.streams)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Sym:
+    """A free position in a tuple key pattern: any int in [lo, hi)."""
+    name: str
+    lo: int = 0
+    hi: Optional[int] = None  # exclusive; None = unbounded
+
+    def intersects(self, other: Union[int, "Sym"]) -> bool:
+        if isinstance(other, Sym):
+            lo = max(self.lo, other.lo)
+            his = [h for h in (self.hi, other.hi) if h is not None]
+            return lo < min(his) if his else True
+        return self.lo <= other and (self.hi is None or other < self.hi)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamSpec:
+    """One registered stream namespace."""
+    name: str
+    pool: str                                   # "tuple" | "scalar"
+    key: Tuple[Union[int, Sym], ...]            # tuple pool: the pattern
+    doc: str
+
+
+def _positions_intersect(a, b) -> bool:
+    if isinstance(a, Sym):
+        return a.intersects(b)
+    if isinstance(b, Sym):
+        return b.intersects(a)
+    return a == b
+
+
+REGISTRY = {}
+
+
+def _register(spec: StreamSpec) -> StreamSpec:
+    assert spec.name not in REGISTRY, spec.name
+    REGISTRY[spec.name] = spec
+    return spec
+
+
+def registry_overlaps(registry=None):
+    """Prove the tuple pool disjoint. Returns a list of problems (empty ==
+    proven): pairwise same-length tuple patterns whose every position can
+    collide at once, and banned length-1 tuple patterns (SeedSequence
+    hashes ``(s,)`` and ``s`` identically)."""
+    registry = REGISTRY if registry is None else registry
+    problems = []
+    tuples = [s for s in registry.values() if s.pool == "tuple"]
+    for s in tuples:
+        if len(s.key) < 2:
+            problems.append(
+                f"{s.name}: length-{len(s.key)} tuple pattern is banned "
+                "(SeedSequence hashes (s,) and s identically)")
+    for i, a in enumerate(tuples):
+        for b in tuples[i + 1:]:
+            if len(a.key) != len(b.key):
+                continue
+            if all(_positions_intersect(x, y)
+                   for x, y in zip(a.key, b.key)):
+                problems.append(
+                    f"{a.name} and {b.name}: patterns {a.key} / {b.key} "
+                    "can collide")
+    return problems
+
+
+# --------------------------------------------------------------------------
+# tuple pool: the reference's patterns, then the port's own
+# --------------------------------------------------------------------------
+
+#: Chain indices are bounded so ``(seed, chain)`` stays disjoint from the
+#: tagged patterns (tags are >= 6151 > CHAIN_MAX).
+CHAIN_MAX = 4096
+FLEET_DEPART_TAG, FLEET_ARRIVE_TAG = 11, 13
+FLEET_GIBBS_TAG, FLEET_SAA_TAG = 17, 19
+FLEET_RESERVE_TAG, BUCKET_TAG, LM_TAG = 9967, 6151, 7433
+#: the port's straggler keep tables, (seed, round, STRAGGLER_TAG)
+STRAGGLER_TAG = 8467
+
+for _spec in (
+        StreamSpec("chain", "tuple", (Sym("seed"), Sym("chain", 1, CHAIN_MAX)),
+                   "Gibbs chain c >= 1; chain 0 is the scalar gibbs stream."),
+        StreamSpec("bucket_chain", "tuple",
+                   (Sym("seed"), BUCKET_TAG, Sym("bucket", 1), Sym("chain")),
+                   "Hierarchical planner, chain c of bucket b >= 1."),
+        StreamSpec("fleet_reserve_means", "tuple",
+                   (Sym("mean_seed"), FLEET_RESERVE_TAG),
+                   "Simulated fleet's reserve-pool channel means."),
+        StreamSpec("fleet_departures", "tuple",
+                   (Sym("seed"), Sym("episode"), FLEET_DEPART_TAG),
+                   "Fleet churn departure uniforms."),
+        StreamSpec("fleet_arrivals", "tuple",
+                   (Sym("seed"), Sym("episode"), FLEET_ARRIVE_TAG),
+                   "Fleet churn arrival uniforms."),
+        StreamSpec("fleet_gibbs", "tuple",
+                   (Sym("seed"), Sym("episode"), FLEET_GIBBS_TAG),
+                   "Fleet in-jit Gibbs proposal draws."),
+        StreamSpec("fleet_saa", "tuple",
+                   (Sym("seed"), Sym("episode"), FLEET_SAA_TAG),
+                   "Fleet SAA innovation and proposal draws."),
+        StreamSpec("lm_batch", "tuple",
+                   (Sym("seed"), LM_TAG, Sym("slot"), Sym("device")),
+                   "Seeded LM pipeline batch draws per (slot, device)."),
+        StreamSpec("straggler", "tuple",
+                   (Sym("seed"), Sym("round"), STRAGGLER_TAG),
+                   "The port's per-round (M, K) straggler keep tables. The "
+                   "reference draws its keep mask with jax.random.bernoulli "
+                   "on the state's key, which torch cannot reproduce; the "
+                   "port draws the table on the host and passes it to the "
+                   "looped and the fused round alike.")):
+    _register(_spec)
+
+
+def chain_rng(seed: int, chain: int) -> np.random.Generator:
+    if chain == 0:
+        return np.random.default_rng(seed)
+    assert 0 < chain < CHAIN_MAX, chain
+    return np.random.default_rng((int(seed), int(chain)))
+
+
+def straggler_rng(seed: int, rnd: int) -> np.random.Generator:
+    return np.random.default_rng((int(seed), int(rnd), STRAGGLER_TAG))
+
+
+# --------------------------------------------------------------------------
+# scalar pool (offset-managed, exempt from the disjointness proof)
+# --------------------------------------------------------------------------
+
+for _name, _doc in (
+        ("batch", "batch_seed(seed, rnd, m, l) = (seed*1_000_003 + rnd*971 "
+                  "+ m*31 + l) % 2**31"),
+        ("data", "Dataset synthesis and sequential CPSLDataset draws."),
+        ("network_means", "device_means(cfg, seed)."),
+        ("network_draw", "One-shot sample_network draw."),
+        ("gibbs", "Alg. 4 Gibbs sampler: default_rng(seed)."),
+        ("layout", "random_clustering layouts: default_rng(seed)."),
+        ("saa_network", "SAA cut selection's network draws: seed + 1."),
+        ("trainer_round", "Trainer per-round network draw: seed*1000 + rnd."),
+        ("curve", "equal_split_curve's network draws: default_rng(seed).")):
+    _register(StreamSpec(_name, "scalar", (), _doc))
+
+
+def batch_seed(seed: int, rnd: int, m: int, l: int) -> int:  # noqa: E741
+    """Per-(round, cluster, epoch) seed for batch draws."""
+    return (seed * 1_000_003 + rnd * 971 + m * 31 + l) % (2 ** 31)
+
+
+def batch_rng(seed: int, rnd: int, m: int, l: int) \
+        -> np.random.Generator:  # noqa: E741
+    return np.random.default_rng(batch_seed(seed, rnd, m, l))
+
+
+def premixed_rng(seed: int) -> np.random.Generator:
+    """A stream keyed by an already-mixed scalar (a ``batch_seed`` value)."""
+    return np.random.default_rng(int(seed))
+
+
+def data_rng(seed: int) -> np.random.Generator:
+    return np.random.default_rng(seed)
+
+
+def network_means_rng(seed: int) -> np.random.Generator:
+    return np.random.default_rng(seed)
+
+
+def network_draw_rng(seed: int) -> np.random.Generator:
+    return np.random.default_rng(seed)
+
+
+def gibbs_rng(seed) -> np.random.Generator:
+    """Alg. 4's stream: an int, or a ``(seed, chain)`` tuple."""
+    if isinstance(seed, tuple):
+        s, c = seed
+        return chain_rng(int(s), int(c))
+    return np.random.default_rng(seed)
+
+
+def layout_rng(seed: int) -> np.random.Generator:
+    return np.random.default_rng(seed)
+
+
+def saa_network_rng(seed: int) -> np.random.Generator:
+    return np.random.default_rng(seed + 1)
+
+
+def trainer_round_rng(seed: int, rnd: int) -> np.random.Generator:
+    return np.random.default_rng(seed * 1000 + rnd)
+
+
+def curve_rng(seed: int) -> np.random.Generator:
+    return np.random.default_rng(seed)

@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels on the card, against their plain
-PyTorch versions, and the serving path through them.
+PyTorch versions, the serving path through them, and a CPSL training
+round on the card.
 
 Every test is marked ``requires_cuda`` and skips on a host without a card
 (the kernels have no CPU mode). The file imports neither JAX nor the
@@ -386,3 +387,69 @@ def test_qwen3_kernel_forward_vs_naive(cuda):
     want, _ = api.forward(params, {"tokens": toks},
                           cfg.replace(attn_impl="naive"))
     assert (logits - want).abs().max().item() < 0.15
+
+
+# --------------------------------------------------------------------------
+# CPSL training on the card (no hand kernel: cuDNN convolutions and GEMMs)
+# --------------------------------------------------------------------------
+
+def _cpsl_setup():
+    from repro_torch.configs.base import CPSLConfig
+    from repro_torch.core.cpsl import CPSL
+    from repro_torch.core.splitting import make_split_model
+    from repro_torch.data.pipeline import CPSLDataset, DeviceResidentDataset
+    from repro_torch.data.synthetic import non_iid_split, synthetic_mnist
+    xtr, ytr, _, _ = synthetic_mnist(600, 10, seed=0)
+    idx = non_iid_split(ytr, n_devices=4, samples_per_device=60, seed=0)
+    ds = CPSLDataset(xtr, ytr, idx, batch=8)
+    cp = CPSL(make_split_model("lenet", 3), CPSLConfig(
+        cut_layer=3, n_clusters=2, cluster_size=2, batch_per_device=8))
+    return cp, ds, DeviceResidentDataset.from_dataset(ds)
+
+
+@pytest.mark.parametrize("fused_step", [True, False])
+def test_cpsl_round_on_card_matches_cpu(cuda, fused_step):
+    """One 2x2 round from the same state and batches: card vs CPU within
+    1e-5 per leaf (sums in another order; no ReLU or pool flips at this
+    size), step counter and rng words equal."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.core.cpsl import CPSL, to_device
+    from repro_torch.data.pipeline import batch_seed
+    cp, ds, _ = _cpsl_setup()
+    cp = CPSL(cp.split, dataclasses.replace(cp.ccfg, fused_step=fused_step))
+    clusters = [[0, 1], [2, 3]]
+    state = cp.init_state(streams.model_generator(0, "cpu"))
+    outs = []
+    for dev in ("cpu", cuda):
+        outs.append(cp.run_round(
+            tree.map(lambda t: t.to(dev), state),
+            lambda m, l, d=dev: {k: to_device(a, d) for k, a in
+                                 ds.cluster_batch(clusters[m], seed=batch_seed(
+                                     0, 0, m, l)).items()}))
+    (s_cpu, m_cpu), (s_card, m_card) = outs
+    assert m_card["loss"] == pytest.approx(m_cpu["loss"], rel=1e-5)
+    for a, b in zip(tree.leaves(s_cpu), tree.leaves(s_card)):
+        if a.dtype.is_floating_point:
+            torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-5)
+        else:
+            assert torch.equal(b.cpu(), a)
+
+
+def test_fused_round_runs_without_host_sync(cuda):
+    from repro_torch import tree
+    from repro_torch.core.cpsl import to_device
+    cp, ds, dsd = _cpsl_setup()
+    clusters = [[0, 1], [2, 3]]
+    state = cp.init_state(streams.model_generator(0, cuda))
+    table = to_device(dsd.round_index_table(clusters, 0, 0, 1), cuda)
+    weights = to_device(dsd.cluster_weights(clusters), cuda, torch.float32)
+    cp.run_round_fused(tree.map(torch.clone, state), dsd.data, table,
+                       weights)                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, mt = cp.run_round_fused(state, dsd.data, table, weights)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(mt["loss"])) and int(state["step"]) == 2

@@ -38,9 +38,20 @@ failures is caught:
    reference's training path has no Pallas kernel); it checks fused
    against looped, the card against the CPU for one round, a fused round
    with no host sync, and that the loss falls.
+6. fleet: the quickstart's second half on the same data and cut,
+   through ``FleetRunner.run`` (``CPSL.run_fleet``, the replica axis
+   batched): the quickstart's 4-replica fleet; the README's 9-replica
+   grid (seeds 0-2 x cluster sizes 3, 5, 10, padded to 10 x 10, 20
+   rounds) against each replica's solo ``run_training_fused``, a padded
+   slot perturbed, the whole call under ``set_sync_debug_mode("error")``,
+   timed and profiled; an 8-replica lr x seed grid; and the batched
+   planner (``sim.batched``: SAA against the looped SAA, then 3 rounds of
+   ``CPSLTrainer`` with ``resource_mgmt="gibbs-mc"``). It launches no
+   hand-written kernel either.
 
-Prints one ``{"train": {...}}`` line, one ``{"kernels": [...]}`` line and,
-last, the device line ``{"ok": true, "device": {...}}``.
+Prints one ``{"train": {...}}`` line, one ``{"fleet": {...}}`` line, one
+``{"kernels": [...]}`` line and, last, the device line ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -629,6 +640,15 @@ def _max_leaf_err(a, b) -> float:
                for x, y in zip(tree.leaves(a), tree.leaves(b)))
 
 
+def _train_data():
+    """Synthetic non-IID MNIST (the container has no MNIST): 8000 train
+    and 1500 test images; 30 devices x 180 samples of 3 classes."""
+    from repro_torch.data.synthetic import non_iid_split, synthetic_mnist
+    xtr, ytr, xte, yte = synthetic_mnist(8000, 1500, seed=0)
+    idx = non_iid_split(ytr, n_devices=30, samples_per_device=180)
+    return xtr, ytr, xte, yte, idx
+
+
 def train_phase() -> dict:
     """The quickstart's first half at the paper's configuration: synthetic
     non-IID MNIST (8000 train, 1500 test; 30 devices x 180 samples of 3
@@ -651,14 +671,12 @@ def train_phase() -> dict:
     from repro_torch.core.resource import saa_cut_selection
     from repro_torch.core.splitting import make_split_model
     from repro_torch.data.pipeline import CPSLDataset, batch_seed
-    from repro_torch.data.synthetic import non_iid_split, synthetic_mnist
     from repro_torch.models import lenet
     from repro_torch.train.trainer import CPSLTrainer, TrainerCfg
     dev = torch.device("cuda")
     M, K, B, L = 6, 5, 16, 1
 
-    xtr, ytr, xte, yte = synthetic_mnist(8000, 1500, seed=0)
-    idx = non_iid_split(ytr, n_devices=M * K, samples_per_device=180)
+    xtr, ytr, xte, yte, idx = _train_data()
     ds = CPSLDataset(xtr, ytr, idx, batch=B)
     ncfg, prof = NetworkCfg(n_devices=M * K), lenet_profile()
     t0 = time.perf_counter()
@@ -772,6 +790,366 @@ def train_phase() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# 6. fleet: FleetRunner over CPSL.run_fleet, and the batched planner
+# --------------------------------------------------------------------------
+
+# The grids (FleetConfig fields). QUICKSTART_FLEET is examples/quickstart.py's
+# fleet, README_FLEET README.md's "Experiment fleets" grid (fig. 6's N_m of
+# benchmarks/fig6_cluster_size.py, three seeds), LR_FLEET the lr x seed
+# grid of benchmarks/bench_fleet.py at cluster size 5.
+QUICKSTART_FLEET = dict(rounds=8, seeds=(0, 1), cluster_sizes=(5, 10),
+                        n_devices=30, eval_every=4)
+README_FLEET = dict(rounds=20, seeds=(0, 1, 2), cluster_sizes=(3, 5, 10),
+                    n_devices=30, eval_every=5)
+LR_FLEET = dict(rounds=8, seeds=(0, 1), cluster_sizes=(5,),
+                lr_scales=(0.5, 1.0, 1.5, 2.0), n_devices=30, eval_every=4)
+GIBBS_MC_ROUNDS, GIBBS_MC_CHAINS = 3, 4
+# a replica against its solo run after the first cluster of round 1, per
+# leaf x max(1, max|leaf|): tests/test_torch_cpsl.py's ATOL_PAPER, and
+# the first cluster's loss. Later the two part: the batched kernels sum in
+# another order, and once an activation sits within those bits of a ReLU
+# zero or a max-pool tie this training amplifies the gap ~14x a step
+# (1.4e-5 -> 2.7e-3 over one round of one replica of the README grid on
+# the CPU, the others at 1e-8; tests/test_torch_fleet.py). So the script
+# checks the first cluster and the integer leaves of the whole curve, and
+# prints the float gap after one round and after the curve.
+FLEET_FIRST_CLUSTER_TOL, FLEET_LOSS_RTOL = 1e-3, 1e-4
+
+
+def _fleet_ccfg(cut):
+    """The README's fleet lowering (im2col convolutions; the scan fields
+    are the reference's and change nothing in the port)."""
+    from repro_torch.configs.base import CPSLConfig
+    return CPSLConfig(cut_layer=cut, conv_impl="im2col", scan_rounds=True,
+                      fused_round_unroll=1)
+
+
+def _bit_equal(a, b) -> bool:
+    """Equal bit for bit, NaN slots included."""
+    import torch
+    if a.dtype.is_floating_point:
+        return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                                  b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _replica_gap(solo, states, e):
+    """(max float error of replica e against its solo state, per leaf x
+    max(1, max|leaf|); integer leaves equal). Padded client rows of the
+    fleet's dev stacks are cut to the solo's."""
+    from repro_torch import tree
+    err, ints = 0.0, True
+    for a, b in zip(tree.leaves(solo), tree.leaves(states)):
+        b = b[e][:a.shape[0]] if a.dim() else b[e]
+        if a.dtype.is_floating_point:
+            err = max(err, float((a.double() - b.double()).abs().max())
+                      / max(1.0, float(a.double().abs().max())))
+        else:
+            ints = ints and bool((a == b).all())
+    return err, ints
+
+
+def _ids(clusters) -> list:
+    return [[int(d) for d in c] for c in clusters]
+
+
+def _solo_runs(fr, rounds, clusters=None, with_eval=True):
+    """Each replica of FleetRunner ``fr`` as a solo ``run_training_fused``
+    curve at its own unpadded layout (its seed's init, its lr scale) over
+    the first ``rounds`` rounds (and ``clusters`` clusters of each), timed
+    one by one on the card. Returns [(state, metrics, wall_ms)]."""
+    import dataclasses
+    import torch
+    from repro_torch import streams
+    from repro_torch.core.cpsl import CPSL
+    out = []
+    for e, sp in enumerate(fr.specs):
+        Me, Ke = sp["n_clusters"], sp["cluster_size"]
+        if clusters is not None:
+            Me = min(Me, clusters)
+        cp = CPSL(fr.cpsl.split, dataclasses.replace(
+            fr.ccfg, n_clusters=Me, cluster_size=Ke))
+        lr = None if fr.lr_scale is None else float(fr.lr_scale[e])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = cp.init_state(streams.model_generator(sp["seed"], fr.device))
+        state, m = cp.run_training_fused(
+            state, fr.dsd.data, fr.plan.idx[e, :rounds, :Me, :, :Ke],
+            fr.plan.weights[e, :Me, :Ke], lr_scale=lr,
+            eval_data=fr.dsd.eval_data if with_eval else None,
+            eval_every=fr.fcfg.eval_every if with_eval else 0)
+        torch.cuda.synchronize()
+        out.append((state, m, 1e3 * (time.perf_counter() - t0)))
+    return out
+
+
+def _fleet_call(fr, states, tb, rounds, clusters=None, idx=None,
+                with_eval=True):
+    """``CPSL.run_fleet`` over the first ``rounds`` rounds (and
+    ``clusters`` cluster slots of each) of the runner's uploaded tables
+    ``tb``; ``idx`` replaces its index table."""
+    idx = tb["idx"] if idx is None else idx
+    c = slice(None, clusters)
+
+    def cut(t, axis):
+        return None if t is None else t[(slice(None),) * axis + (c,)]
+
+    return fr.cpsl.run_fleet(
+        states, fr.dsd.data, idx[:, :rounds, c], cut(tb["weights"], 1),
+        lr_scale=tb["lr_scale"],
+        eval_data=fr.dsd.eval_data if with_eval else None,
+        eval_every=fr.fcfg.eval_every if with_eval else 0,
+        cluster_mask=cut(tb["cluster_mask"], 1),
+        client_mask=cut(tb["client_mask"], 1),
+        keep=None if tb["keep"] is None else tb["keep"][:, :rounds, c])
+
+
+def _solo_gaps(fr, tb, rounds, clusters=None, label="", tol=None) -> list:
+    """Per replica, the float gap to its solo run after the first
+    ``rounds`` rounds (``clusters`` clusters each); integer leaves must be
+    equal, and with ``tol`` the gap must be within it and the losses
+    within FLEET_LOSS_RTOL."""
+    states = fr.cpsl.init_fleet_state(fr.plan.seeds, fr.device)
+    states, mf = _fleet_call(fr, states, tb, rounds, clusters,
+                             with_eval=False)
+    gaps = []
+    for e, (solo, ms, _) in enumerate(_solo_runs(fr, rounds, clusters,
+                                                 with_eval=False)):
+        err, ints = _replica_gap(solo, states, e)
+        lf, ls = float(mf["loss"][e, -1]), float(ms["loss"][-1])
+        gaps.append(err)
+        if not ints or (tol is not None and not (
+                err <= tol and abs(lf - ls) <= FLEET_LOSS_RTOL * abs(ls))):
+            raise AssertionError(
+                f"{label}: replica {e} after {rounds} round(s), "
+                f"{clusters or 'all'} cluster(s): max rel err {err} (limit "
+                f"{tol}), integers equal {ints}, loss {lf} vs solo {ls}")
+    return gaps
+
+
+def fleet_phase(train: dict, smi: str) -> dict:
+    """The quickstart's fleet half on the train phase's data and SAA cut.
+    Checks, none caught: every loss of a real slot finite (lr scales up to
+    1.0); each README-grid replica against its solo run (the first
+    cluster: floats within FLEET_FIRST_CLUSTER_TOL; 20 rounds: integer
+    leaves equal); a perturbed padded slot changes no output bit (cuDNN
+    deterministic); the README grid's run_fleet call under
+    ``set_sync_debug_mode("error")``; the lr-1.0 replicas of the lr grid
+    against the solo runs at the base lr; the batched SAA's v* and means
+    equal to the looped SAA's; gibbs-mc's chain 0 equal to the "gibbs"
+    plan and its best-of-4 latency never above it; K1 and K2 launched 0
+    times."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch import streams, tree
+    from repro_torch.configs.base import CPSLConfig, FleetConfig
+    from repro_torch.core import resource as rs
+    from repro_torch.core.channel import NetworkCfg, sample_network
+    from repro_torch.core.cpsl import CPSL, to_device
+    from repro_torch.core.profile import lenet_profile
+    from repro_torch.core.splitting import make_split_model
+    from repro_torch.data.pipeline import CPSLDataset
+    from repro_torch.sim.batched import (gibbs_clustering_multichain,
+                                         saa_cut_selection_batched)
+    from repro_torch.train.trainer import (CPSLTrainer, FleetRunner,
+                                           TrainerCfg)
+    dev = torch.device("cuda")
+    xtr, ytr, xte, yte, idx = _train_data()
+    v = train["cut"]
+    prof, ncfg = lenet_profile(), NetworkCfg(n_devices=30)
+    modules = _kernel_modules()
+    for m in modules.values():
+        m.launches = 0
+    torch.backends.cudnn.deterministic = True
+    out = {"card": smi, "cudnn_deterministic": True}
+
+    def runner(grid, cut):
+        return FleetRunner(xtr, ytr, FleetConfig(**grid), _fleet_ccfg(cut),
+                           xte=xte, yte=yte, prof=prof, ncfg=ncfg,
+                           device=dev)
+
+    def real_losses_finite(res, max_lr=1.0):
+        for rep in res["replicas"]:
+            if rep["lr_scale"] <= max_lr and not np.isfinite(
+                    rep["loss"]).all():
+                raise AssertionError(f"non-finite loss in {rep}")
+
+    def replicas(res):
+        return [{k: rep[k] for k in ("seed", "cluster_size", "lr_scale")}
+                | {"loss": rep["loss"][-1], "acc": rep["acc"][-1],
+                   "sim_time_s": rep["sim_time_s"][-1]}
+                for rep in res["replicas"]]
+
+    # 1. the quickstart's fleet
+    fr = runner(QUICKSTART_FLEET, v)
+    res = fr.run()
+    real_losses_finite(res)
+    out["quickstart"] = {"grid": QUICKSTART_FLEET, "cut": v,
+                         "padded_MK": [fr.ccfg.n_clusters,
+                                       fr.ccfg.cluster_size],
+                         "wall_ms": 1e3 * res["wall_s"],
+                         "replicas": replicas(res)}
+    log("fleet quickstart: " + json.dumps(out["quickstart"]))
+
+    # 2. the README grid at full size
+    fr = runner(README_FLEET, 3)
+    R, L = fr.plan.idx.shape[1], fr.ccfg.local_epochs
+    M_pad = fr.ccfg.n_clusters
+    first = fr.run()
+    real_losses_finite(first)
+    tb = fr.upload()
+    states0 = fr.cpsl.init_fleet_state(fr.plan.seeds, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s_ref, m_ref = _fleet_call(fr, tree.map(torch.clone, states0), tb, R)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    poked = fr.plan.idx.copy()
+    pad = ~np.broadcast_to(fr.plan.client_mask[:, None, :, None, :, None],
+                           poked.shape)
+    poked[pad] = (poked[pad] + 7) % len(xtr)
+    s_poke, m_poke = _fleet_call(fr, tree.map(torch.clone, states0), tb, R,
+                                 idx=to_device(poked, dev))
+    same = (all(_bit_equal(a, b) for a, b in zip(tree.leaves(s_ref),
+                                                  tree.leaves(s_poke)))
+            and all(_bit_equal(m_ref[k], m_poke[k])
+                    for k in ("losses", "loss"))
+            and all(_bit_equal(m_ref["eval"][k], m_poke["eval"][k])
+                    for k in ("acc", "loss")))
+    if not same:
+        raise AssertionError("README grid: perturbing padded slots changed "
+                             "an output")
+    torch.cuda.reset_peak_memory_stats()
+    timed = fr.run()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    solos = _solo_runs(fr, R)
+    gaps = []
+    for e, (solo, ms, _) in enumerate(solos):
+        err, ints = _replica_gap(solo, s_ref, e)
+        if not ints:
+            raise AssertionError(f"README grid: replica {e}'s integer "
+                                 f"leaves differ from its solo run's")
+        gaps.append(err)
+    first_cluster = _solo_gaps(fr, tb, 1, 1, "README grid",
+                               FLEET_FIRST_CLUSTER_TOL)
+    one_round = _solo_gaps(fr, tb, 1, label="README grid")
+    prof1 = device_profile(lambda: _fleet_call(
+        fr, tree.map(torch.clone, states0), tb, 1, with_eval=False))
+    steps = R * M_pad * L
+    out["readme_grid"] = {
+        "grid": README_FLEET, "cut": 3, "n_replicas": len(fr.specs),
+        "padded_MK": [M_pad, fr.ccfg.cluster_size],
+        "samples_per_step": len(fr.specs) * fr.ccfg.cluster_size
+        * fr.ccfg.batch_per_device,
+        "fleet_wall_ms_first": 1e3 * first["wall_s"],
+        "fleet_wall_ms": 1e3 * timed["wall_s"],
+        "ms_per_batched_step": 1e3 * timed["wall_s"] / steps,
+        "batched_steps": steps,
+        "solo_wall_ms": [w for _, _, w in solos],
+        "solo_wall_ms_sum": sum(w for _, _, w in solos),
+        "solo_steps": int(sum(int(s["step"]) for s, _, _ in solos)),
+        "first_cluster_max_rel_err": first_cluster,
+        "one_round_max_rel_err": one_round,
+        "final_max_rel_err": gaps,
+        "padded_perturbation_bit_identical": True,
+        "run_fleet_host_syncs": 0,
+        "device_busy_share_one_round": prof1["busy_share"],
+        "profile_one_round": prof1, "peak_memory_mb": peak_mb,
+        "replicas": replicas(timed)}
+    log("fleet README grid: " + json.dumps(out["readme_grid"]))
+
+    # 3. the lr x seed grid (homogeneous: no masks)
+    fr = runner(LR_FLEET, 3)
+    res = fr.run()
+    real_losses_finite(res)
+    tb = fr.upload()
+    s_fleet, _ = _fleet_call(fr, fr.cpsl.init_fleet_state(fr.plan.seeds,
+                                                          dev),
+                             tb, fr.fcfg.rounds)
+    base = [e for e, sp in enumerate(fr.specs) if sp["lr_scale"] == 1.0]
+    baked = CPSL(fr.cpsl.split, fr.ccfg)
+    for e in base:
+        solo, _ = baked.run_training_fused(
+            baked.init_state(streams.model_generator(fr.specs[e]["seed"],
+                                                     dev)),
+            fr.dsd.data, fr.plan.idx[e], fr.plan.weights[e])
+        if not _replica_gap(solo, s_fleet, e)[1]:
+            raise AssertionError(f"lr grid: replica {e}'s integer leaves "
+                                 "differ from the baked-lr solo run's")
+    lr_first = _solo_gaps(fr, tb, 1, 1, "lr grid", FLEET_FIRST_CLUSTER_TOL)
+    out["lr_grid"] = {"grid": LR_FLEET, "cut": 3,
+                      "wall_ms": 1e3 * res["wall_s"],
+                      "ms_per_batched_step": 1e3 * res["wall_s"]
+                      / (fr.fcfg.rounds * fr.ccfg.n_clusters),
+                      "lr_1_replicas": base,
+                      "first_cluster_max_rel_err": lr_first,
+                      "replicas": replicas(res)}
+    log("fleet lr grid: " + json.dumps(out["lr_grid"]))
+
+    # 4. the batched planner
+    t0 = time.perf_counter()
+    vb, means_b = saa_cut_selection_batched(
+        prof, ncfg, B=16, L=1, n_clusters=6, cluster_size=5, n_samples=3,
+        gibbs_iters=60, chains=1)
+    saa_b = time.perf_counter() - t0
+    if vb != v or not np.array_equal(means_b, np.array(train["saa_means_s"])):
+        raise AssertionError(f"batched SAA v*={vb} {means_b.tolist()} vs "
+                             f"looped v*={v} {train['saa_means_s']}")
+    ckpt = ROOT / "build" / "chip_smoke_ckpt" / "gibbs_mc"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ccfg = CPSLConfig(cut_layer=v, n_clusters=6, cluster_size=5,
+                      local_epochs=1, batch_per_device=16, fused_round=True)
+    trainer = CPSLTrainer(
+        CPSL(make_split_model("lenet", v), ccfg),
+        CPSLDataset(xtr, ytr, idx, batch=16), prof, ncfg,
+        TrainerCfg(rounds=GIBBS_MC_ROUNDS, ckpt_every=GIBBS_MC_ROUNDS,
+                   ckpt_dir=str(ckpt), resource_mgmt="gibbs-mc",
+                   gibbs_iters=80, gibbs_chains=GIBBS_MC_CHAINS),
+        device=dev)
+    trainer.run(generator=streams.model_generator(0, dev), v=v)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    rounds = []
+    for rnd, h in enumerate(trainer.history):
+        net = sample_network(ncfg, trainer.mu_f, trainer.mu_snr,
+                             streams.trainer_round_rng(0, rnd))
+        t0 = time.perf_counter()
+        g = rs.gibbs_clustering(v, net, ncfg, prof, 16, 1, 6, 5, iters=80,
+                                seed=rnd)
+        gibbs_s = time.perf_counter() - t0
+        full = gibbs_clustering_multichain(v, net, ncfg, prof, 16, 1, 6, 5,
+                                           iters=80, seed=rnd,
+                                           chains=GIBBS_MC_CHAINS, full=True)
+        c0 = full.chain_results[0]
+        if not (_ids(c0[0]) == _ids(g[0]) and c0[2] == g[2]
+                and all(np.array_equal(a, b) for a, b in zip(c0[1], g[1]))):
+            raise AssertionError(f"gibbs-mc round {rnd}: chain 0 is not the "
+                                 "gibbs plan")
+        if not (full.latency <= g[2] and h["sim_latency_s"] == full.latency):
+            raise AssertionError(
+                f"gibbs-mc round {rnd}: best-of-{GIBBS_MC_CHAINS} "
+                f"{full.latency} vs gibbs {g[2]}, trainer "
+                f"{h['sim_latency_s']}")
+        rounds.append({"round": rnd, "plan_s": h["plan_s"],
+                       "gibbs_plan_s": gibbs_s, "wall_s": h["wall_s"],
+                       "latency_s": full.latency, "gibbs_latency_s": g[2],
+                       "best_chain": full.best_chain, "loss": h["loss"]})
+    out["planner"] = {"saa_looped_s": train["saa_s"], "saa_batched_s": saa_b,
+                      "v_star": vb, "saa_means_equal": True,
+                      "gibbs_mc": rounds}
+    log("fleet planner: " + json.dumps(out["planner"]))
+    out["hand_kernel_launches"] = {n: m.launches
+                                   for n, m in modules.items()}
+    if any(out["hand_kernel_launches"].values()):
+        raise AssertionError("fleet phase launched a hand kernel: "
+                             + json.dumps(out["hand_kernel_launches"]))
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
 def device_profile(fn, top: int = 8) -> dict:
     """One call of ``fn`` under torch.profiler: its host wall time, the
     device time summed over the kernels it ran (one stream, so the sum is
@@ -816,7 +1194,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    device_phase()
+    smi = device_phase()["nvidia_smi"]
     sweep = flash_sweep()
     shapes = flash_slice_shapes()
     ssd_worst = ssd_sweep()
@@ -825,6 +1203,7 @@ def main() -> int:
     gemma = gemma_serve_phase()
     mamba = mamba_serve_phase()
     train = train_phase()
+    fleet = fleet_phase(train, smi)
 
     def mean(key):
         return sum(r[key] for r in shapes) / len(shapes)
@@ -863,6 +1242,7 @@ def main() -> int:
         "shape": ssd_model["shape"], "flat_shape": ssd_flat_row["shape"],
         "short_chunks": ssd_short, "sweep_max_abs_err": ssd_worst}]
     print(json.dumps({"train": train}))
+    print(json.dumps({"fleet": fleet}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

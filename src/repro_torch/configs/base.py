@@ -1,6 +1,6 @@
 """Model config dataclasses (the port's own copy of ``repro.configs.base``'s
-model part and ``CPSLConfig``; the fleet, simulator and mesh configs come
-with their slices).
+model part, ``CPSLConfig`` and ``FleetConfig``; the simulator and mesh
+configs come with their slices).
 
 A ModelConfig fully describes one architecture in the zoo. Layer stacks are
 an optional unrolled ``prologue`` followed by a periodic ``pattern``
@@ -164,10 +164,39 @@ class CPSLConfig:
     compress_uploads: str = "none"   # none | topk | int8 (device-model uploads)
     compress_topk: float = 0.1
     scan_rounds: bool = False        # the reference's scanned round axis
-                                     # (run_training_fused, slice 3b); kept
-                                     # for config parity
+                                     # in run_training_fused; the port runs
+                                     # rounds as a Python loop and keeps the
+                                     # field (and its eval_every | rounds
+                                     # assertion) for config parity
     conv_impl: str = "direct"        # lenet conv: "direct" (F.conv2d) |
                                      # "im2col" (9 slices + one matmul); same
                                      # params, consumed by
                                      # make_split_model("lenet", v,
                                      # conv_impl=...)
+
+
+@dataclass(frozen=True)
+class FleetConfig:
+    """Experiment fleet: E = len(seeds) x len(cluster_sizes) x
+    len(lr_scales) CPSL training replicas run as one batched program
+    (``CPSL.run_fleet``, built and driven by ``train.trainer.FleetRunner``).
+
+    Replicas differ only in data: per-replica seeds (init, non-IID shard
+    draws, batch streams), cluster layouts padded to the grid's (max M,
+    max K) with masks, and learning-rate scales applied as tensors."""
+    rounds: int = 10
+    seeds: Tuple[int, ...] = (0,)
+    cluster_sizes: Tuple[int, ...] = (5,)   # N_m grid axis (fig. 6)
+    lr_scales: Tuple[float, ...] = ()       # lr grid axis, multiplying the
+                                            # CPSLConfig lrs; () = base lr only
+    n_devices: int = 30                     # N (shards drawn per seed)
+    eval_every: int = 0                     # in-loop eval cadence; 0 = off
+    samples_per_device: int = 180           # non-IID shard size
+
+    @property
+    def n_replicas(self) -> int:
+        return (len(self.seeds) * len(self.cluster_sizes)
+                * max(len(self.lr_scales), 1))
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)

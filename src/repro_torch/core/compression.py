@@ -3,7 +3,9 @@ the uplink, the paper's DMT latency component); the port of
 ``repro.core.compression``.
 
 Top-k sparsification with error feedback (Stich et al.) and int8
-quantize-dequantize, leaf-wise over delta trees.
+quantize-dequantize, leaf-wise over delta trees. ``lead`` leading axes of
+every leaf are independent (an experiment fleet's replica axis): each slab
+keeps its own top-k and its own int8 scale.
 """
 from __future__ import annotations
 
@@ -14,29 +16,32 @@ import torch
 from repro_torch import tree
 
 
-def topk_mask(x: torch.Tensor, ratio: float) -> torch.Tensor:
-    """Keep exactly the top-``ratio`` fraction of entries by magnitude,
-    ties broken toward the lower index, as ``jax.lax.top_k`` does.
-    ``torch.topk`` promises no order among ties; a stable descending sort
-    of ``|x|`` keeps equal magnitudes in index order, so the first k
-    indices are ``top_k``'s."""
-    if x.dim() == 0:
+def topk_mask(x: torch.Tensor, ratio: float, lead: int = 0) -> torch.Tensor:
+    """Keep exactly the top-``ratio`` fraction of entries by magnitude
+    (of each slab below the ``lead`` axes), ties broken toward the lower
+    index, as ``jax.lax.top_k`` does. ``torch.topk`` promises no order
+    among ties; a stable descending sort of ``|x|`` keeps equal magnitudes
+    in index order, so the first k indices are ``top_k``'s."""
+    if x.dim() == lead:
         return x
-    flat = x.reshape(-1)
-    k = max(int(ratio * flat.numel()), 1)
-    idx = torch.sort(flat.abs(), descending=True, stable=True).indices[:k]
-    out = torch.zeros_like(flat).scatter(0, idx, flat.gather(0, idx))
+    flat = x.reshape(tuple(x.shape[:lead]) + (-1,))
+    k = max(int(ratio * flat.shape[-1]), 1)
+    idx = torch.sort(flat.abs(), dim=-1, descending=True,
+                     stable=True).indices[..., :k]
+    out = torch.zeros_like(flat).scatter(-1, idx, flat.gather(-1, idx))
     return out.reshape(x.shape)
 
 
-def compress_topk(delta, ratio: float):
-    return tree.map(lambda t: topk_mask(t, ratio), delta)
+def compress_topk(delta, ratio: float, lead: int = 0):
+    return tree.map(lambda t: topk_mask(t, ratio, lead), delta)
 
 
-def compress_int8(delta):
+def compress_int8(delta, lead: int = 0):
     def q(t):
         t32 = t.float()
-        scale = torch.clamp_min(t32.abs().amax(), 1e-12) / 127.0
+        dims = tuple(range(lead, t.dim()))
+        amax = t32.abs().amax(dim=dims, keepdim=True) if dims else t32.abs()
+        scale = torch.clamp_min(amax, 1e-12) / 127.0
         # torch.round rounds half to even, as jnp.round does
         qt = torch.clamp(torch.round(t32 / scale), -127, 127).to(torch.int8)
         return (qt.float() * scale).to(t.dtype)
@@ -44,11 +49,11 @@ def compress_int8(delta):
     return tree.map(q, delta)
 
 
-def compress(delta, method: str, ratio: float = 0.1):
+def compress(delta, method: str, ratio: float = 0.1, lead: int = 0):
     if method == "topk":
-        return compress_topk(delta, ratio)
+        return compress_topk(delta, ratio, lead)
     if method == "int8":
-        return compress_int8(delta)
+        return compress_int8(delta, lead)
     raise ValueError(method)
 
 
@@ -67,10 +72,10 @@ def compression_ratio(method: str, ratio: float = 0.1) -> float:
     raise ValueError(method)
 
 
-def apply_with_error_feedback(delta, ef, method: str, ratio: float = 0.1
-                              ) -> Tuple:
+def apply_with_error_feedback(delta, ef, method: str, ratio: float = 0.1,
+                              lead: int = 0) -> Tuple:
     """compressed(delta + ef), new ef = residual."""
     corrected = tree.map(lambda d, e: d + e.to(d.dtype), delta, ef)
-    comp = compress(corrected, method, ratio)
+    comp = compress(corrected, method, ratio, lead)
     new_ef = tree.map(lambda c, z: (c - z).float(), corrected, comp)
     return comp, new_ef

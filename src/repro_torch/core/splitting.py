@@ -7,6 +7,10 @@ A ``SplitModel`` bundles:
     device_apply_clients(dev_K, batch_K)    -> the same for K clients at
                                                once (K-stacked params)
     server_loss(srv_params, smashed, batch) -> (loss, aux)
+    server_loss_replicas(srv_E, smashed_E, batch_E)
+                                            -> (loss (E,), aux (E,)): E
+                                               server models at once
+                                               (an experiment fleet)
     export(dev_params, srv_params)          -> (assembled params, cfg)
     smashed_spec(batch_size, seq)           -> a ``meta`` tensor of the
                                                smashed data's shape/dtype
@@ -21,6 +25,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lenet as ln
 
@@ -44,6 +49,12 @@ class SplitModel:
     masked_loss: bool = False
     # True when server_loss implements the reserved per-sample
     # ``batch["sample_weight"]`` semantics of padded layouts
+    server_loss_replicas: Optional[Callable] = None
+    # E-stacked server params, smashed (E, K*B, ..) and batch (E, K*B, ..)
+    # -> (loss (E,), aux (E,)); replica e equals server_loss on its slab
+    eval_metrics_replicas: Optional[Callable] = None
+    # (dev_E, srv_E, eval_batch) -> {"acc": (E,), "loss": (E,)}; one shared
+    # eval batch
 
 
 def make_lenet_split(v: int, input_hw: int = 28,
@@ -76,6 +87,25 @@ def make_lenet_split(v: int, input_hw: int = 28,
         w = weight.reshape(-1).to(nll.dtype)
         return (nll[:, 0] * w).sum() / torch.clamp_min(w.sum(), 1.0), zero
 
+    def server_loss_replicas(srv, smashed, batch):
+        """E server models over their own smashed data: one grouped
+        convolution or batched matmul per layer (the K-client pass with
+        the replica axis as its client axis, in ``apply_range``'s layout:
+        ``lenet.apply_range_replicas``); per-replica means, so no
+        replica's loss sees another's samples."""
+        logits = ln.apply_range_replicas(srv, smashed, v, ln.N_LAYERS,
+                                         conv_impl)
+        E = logits.shape[0]
+        nll = ln.nll(logits.reshape(-1, logits.shape[-1]),
+                     batch["label"].reshape(-1)).reshape(E, -1)
+        zero = nll.new_zeros((E,))
+        weight = batch.get("sample_weight")
+        if weight is None:
+            return nll.mean(-1), zero
+        w = weight.reshape(E, -1).to(nll.dtype)
+        return ((nll * w).sum(-1)
+                / torch.clamp_min(w.sum(-1), 1.0)), zero
+
     def export(dev, srv):
         return ln.merge_params(dev, srv), None
 
@@ -92,10 +122,26 @@ def make_lenet_split(v: int, input_hw: int = 28,
         acc = (logits.argmax(-1) == batch["label"]).float().mean()
         return {"acc": acc, "loss": ln.nll(logits, batch["label"]).mean()}
 
+    def eval_metrics_replicas(dev, srv, batch):
+        """``eval_metrics`` for E replicas on one shared eval batch."""
+        E = tree.leaves(srv)[0].shape[0]
+        x = batch["image"]
+        x = x[None].expand((E,) + tuple(x.shape))
+        smashed = ln.apply_range_replicas(dev, x, 0, v, conv_impl)
+        logits = ln.apply_range_replicas(srv, smashed, v, ln.N_LAYERS,
+                                         conv_impl)
+        labels = batch["label"]
+        acc = (logits.argmax(-1) == labels[None]).float().mean(-1)
+        nll = ln.nll(logits.reshape(-1, logits.shape[-1]),
+                     labels[None].expand(E, -1).reshape(-1))
+        return {"acc": acc, "loss": nll.reshape(E, -1).mean(-1)}
+
     return SplitModel("lenet", None, v, ln.N_LAYERS - 1, init_device,
                       init_server, device_apply, device_apply_clients,
                       server_loss, export,
-                      smashed_spec, eval_metrics, masked_loss=True)
+                      smashed_spec, eval_metrics, masked_loss=True,
+                      server_loss_replicas=server_loss_replicas,
+                      eval_metrics_replicas=eval_metrics_replicas)
 
 
 def make_split_model(cfg_or_name, v: int, **kw) -> SplitModel:

@@ -11,9 +11,13 @@ a device once, and each round the host computes only a small
 ``cluster_batch`` uses, that ``CPSL.run_round_fused`` gathers on the
 device. The NumPy functions are copies of the reference's, so tables and
 batches are bit-identical to it.
+
+``fleet_plan`` builds an experiment fleet's padded (E, R, M, L, K, B)
+tables, eq.-8 weights and masks for ``CPSL.run_fleet``.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -23,7 +27,7 @@ from repro_torch import resolve_device, streams
 from repro_torch.streams import batch_seed
 
 __all__ = ["shard_sizes", "round_index_table", "batch_seed",
-           "CPSLDataset", "DeviceResidentDataset"]
+           "CPSLDataset", "DeviceResidentDataset", "FleetPlan", "fleet_plan"]
 
 
 def shard_sizes(device_indices: List[np.ndarray],
@@ -156,3 +160,69 @@ class DeviceResidentDataset:
         return np.stack([self.round_index_table(clusters, seed, r,
                                                 local_epochs)
                          for r in range(rounds)])
+
+
+@dataclass
+class FleetPlan:
+    """Padded per-replica tables for ``CPSL.run_fleet``.
+
+    ``idx`` (E, R, M, L, K, B) int32 — replica e's training index table,
+    zero-filled on padded slots; ``weights`` (E, M, K) eq.-8 data sizes
+    with exact zeros on padded client slots (so FedAvg never weighs
+    them); ``cluster_mask`` (E, M) / ``client_mask`` (E, M, K) mark the
+    real slots (both ``None`` when every replica already has the common
+    shape, so a homogeneous fleet runs the mask-free body)."""
+    idx: np.ndarray
+    weights: np.ndarray
+    cluster_mask: Optional[np.ndarray]
+    client_mask: Optional[np.ndarray]
+    layouts: List[List[List[int]]]
+    seeds: List[int]
+
+    @property
+    def n_replicas(self) -> int:
+        return self.idx.shape[0]
+
+
+def fleet_plan(shards: List[List[np.ndarray]], batch: int,
+               layouts: List[List[List[int]]], seeds: Sequence[int],
+               rounds: int, local_epochs: int,
+               pad_to: Optional[tuple] = None) -> FleetPlan:
+    """Build the batched-fleet tables: replica e draws its batches from
+    shard table ``shards[e]`` over its own (rectangular) cluster layout
+    ``layouts[e]`` with batch-seed stream ``seeds[e]``, then everything
+    is padded to the grid's (max M, max K).
+
+    Real rows are built on the unpadded layout, so they are bit-identical
+    to the tables a solo run of that replica would use; padded slots get
+    index 0 (a valid gather) and are masked out of the loss, FedAvg and
+    metrics by the masks.
+
+    ``pad_to``: an explicit (M, K) target overriding the grid max."""
+    E = len(layouts)
+    assert len(shards) == E and len(seeds) == E, (len(shards), len(seeds))
+    Ms = [len(lay) for lay in layouts]
+    Ks = [len(lay[0]) for lay in layouts]
+    M, K = pad_to if pad_to is not None else (max(Ms), max(Ks))
+    assert M >= max(Ms) and K >= max(Ks), (pad_to, Ms, Ks)
+    homogeneous = all(m == M for m in Ms) and all(k == K for k in Ks)
+
+    idx = np.zeros((E, rounds, M, local_epochs, K, batch), np.int32)
+    weights = np.zeros((E, M, K), np.float32)
+    cmask = np.zeros((E, M), bool)
+    kmask = np.zeros((E, M, K), bool)
+    for e, (lay, sh, seed) in enumerate(zip(layouts, shards, seeds)):
+        for lay_m in lay:
+            assert len(lay_m) == Ks[e], "replica layouts must be rectangular"
+        real = np.stack([round_index_table(sh, batch, lay, seed, r,
+                                           local_epochs)
+                         for r in range(rounds)])
+        idx[e, :, :Ms[e], :, :Ks[e]] = real
+        weights[e, :Ms[e], :Ks[e]] = np.stack(
+            [shard_sizes(sh, c) for c in lay])
+        cmask[e, :Ms[e]] = True
+        kmask[e, :Ms[e], :Ks[e]] = True
+    return FleetPlan(idx, weights, None if homogeneous else cmask,
+                     None if homogeneous else kmask,
+                     [list(map(list, lay)) for lay in layouts],
+                     [int(s) for s in seeds])

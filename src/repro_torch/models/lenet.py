@@ -136,10 +136,16 @@ def apply_range(params: dict, x: torch.Tensor, lo: int, hi: int,
     return x
 
 
-def _apply_layer_clients(params, x, name, conv_impl="direct"):
+def _apply_layer_clients(params, x, name, conv_impl="direct",
+                         channels_last=False):
     """``_apply_layer`` for K clients at once: params leaves and x carry
     a leading K axis. Convolutions run as one grouped convolution (groups
-    = K) or one batched matmul, dense layers as one batched matmul."""
+    = K) or one batched matmul, dense layers as one batched matmul.
+
+    ``channels_last``: the grouped convolution sees the K models' channels
+    side by side in one NHWC map, as a channels_last (B, K*C, H, W) — the
+    layout ``_conv_direct`` hands one model's conv — instead of a
+    contiguous NCHW copy."""
     if name.startswith("CONV"):
         _, _, pad = _CONV[name]
         w, b = params[name]["w"].to(x.dtype), params[name]["b"].to(x.dtype)
@@ -155,6 +161,15 @@ def _apply_layer_clients(params, x, name, conv_impl="direct"):
             y = torch.bmm(cols.reshape(K, B * Ho * Wo, 9 * C),
                           w.reshape(K, 9 * C, -1))
             y = y.reshape(K, B, Ho, Wo, -1)
+        elif channels_last:
+            O = w.shape[-1]
+            xg = x.permute(1, 2, 3, 0, 4).reshape(B, H, W, K * C).permute(
+                0, 3, 1, 2)
+            wg = w.permute(0, 4, 3, 1, 2).reshape(K * O, C, 3, 3)
+            y = F.conv2d(xg, wg, padding=1 if pad == "SAME" else 0, groups=K)
+            Ho, Wo = y.shape[-2:]
+            y = y.permute(0, 2, 3, 1).reshape(B, Ho, Wo, K, O).permute(
+                3, 0, 1, 2, 4)
         else:
             O = w.shape[-1]
             xg = x.permute(1, 0, 4, 2, 3).reshape(B, K * C, H, W)
@@ -185,6 +200,19 @@ def apply_range_clients(params: dict, x: torch.Tensor, lo: int, hi: int,
     return x
 
 
+def apply_range_replicas(params: dict, x: torch.Tensor, lo: int, hi: int,
+                         conv_impl: str = "direct"):
+    """``apply_range`` for E models at once (an experiment fleet's
+    replicas): params leaves (E, ...), x (E, B, ...). The grouped
+    convolutions take the layout ``apply_range`` gives one model's, so on
+    one CPU thread each replica's slab, forward and backward, is
+    bit-equal to ``apply_range`` on it."""
+    for name in LAYERS[lo:hi]:
+        x = _apply_layer_clients(params, x, name, conv_impl,
+                                 channels_last=True)
+    return x
+
+
 def forward(params: dict, x: torch.Tensor, conv_impl: str = "direct"):
     return apply_range(params, x, 0, N_LAYERS, conv_impl)
 
@@ -198,6 +226,16 @@ def nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def loss_fn(params: dict, batch: dict) -> torch.Tensor:
     # paper: log-likelihood loss == cross-entropy on log-softmax
     return nll(forward(params, batch["image"]), batch["label"]).mean()
+
+
+def loss_fn_clients(params: dict, batch: dict) -> torch.Tensor:
+    """``loss_fn`` for N full models at once: params leaves (N, ...),
+    batch leaves (N, B, ...); returns the (N,) per-model losses (the FL
+    comparator's N devices as one clients pass)."""
+    logits = apply_range_replicas(params, batch["image"], 0, N_LAYERS)
+    N = logits.shape[0]
+    return nll(logits.reshape(-1, logits.shape[-1]),
+               batch["label"].reshape(-1)).reshape(N, -1).mean(-1)
 
 
 def split_params(params: dict, v: int) -> Tuple[dict, dict]:

@@ -14,6 +14,10 @@ checkpoints interchange between the packages.
 ``lr_scale`` (a scalar or 0-d tensor) multiplies the schedule's rate; with
 a base lr of 1.0 the multiply is exact, so a scaled run reproduces the run
 whose lr was set directly.
+
+Experiment fleets stack E replicas on a leading axis of every leaf. Their
+``step`` and ``lr_scale`` are then (E,) tensors, and a rate of shape (E,)
+multiplies each replica's slab of every leaf (``per_replica``).
 """
 from __future__ import annotations
 
@@ -35,6 +39,15 @@ def _lr_at(lr: Schedule, step):
 def _scaled_lr(lr: Schedule, step, lr_scale):
     lr_t = _lr_at(lr, step)
     return lr_t if lr_scale is None else lr_t * lr_scale
+
+
+def per_replica(x, p: torch.Tensor):
+    """A per-replica (E,) tensor shaped to broadcast against a tensor whose
+    leading axis is the replica axis; scalars and 0-d tensors as they
+    are."""
+    if isinstance(x, torch.Tensor) and x.dim() == 1:
+        return x.reshape((-1,) + (1,) * (p.dim() - 1))
+    return x
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -61,8 +74,9 @@ def sgd(lr: Schedule) -> Optimizer:
 
     def step_fn(grads, state, params, step=0, lr_scale=None):
         lr_t = _scaled_lr(lr, step, lr_scale)
-        new = tree.map(lambda p, g: p - (lr_t * g.float()).to(p.dtype),
-                       params, grads)
+        new = tree.map(
+            lambda p, g: p - (per_replica(lr_t, p) * g.float()).to(p.dtype),
+            params, grads)
         return new, state
 
     return Optimizer(init, step_fn, "sgd")
@@ -76,8 +90,9 @@ def momentum(lr: Schedule, beta: float = 0.9) -> Optimizer:
     def step_fn(grads, state, params, step=0, lr_scale=None):
         lr_t = _scaled_lr(lr, step, lr_scale)
         new_m = tree.map(lambda m, g: beta * m + g.float(), state, grads)
-        new_p = tree.map(lambda p, m: p - (lr_t * m).to(p.dtype), params,
-                         new_m)
+        new_p = tree.map(
+            lambda p, m: p - (per_replica(lr_t, p) * m).to(p.dtype), params,
+            new_m)
         return new_p, new_m
 
     return Optimizer(init, step_fn, "momentum")
@@ -103,10 +118,11 @@ def adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.999,
                                          device=t.device), t)
 
         def upd(p, m_, v_):
-            u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
+            u = ((m_ / per_replica(bc1, p))
+                 / (torch.sqrt(v_ / per_replica(bc2, p)) + eps))
             if weight_decay:
                 u = u + weight_decay * p.float()
-            return (p - lr_t * u).to(p.dtype)
+            return (p - per_replica(lr_t, p) * u).to(p.dtype)
 
         return tree.map(upd, params, m, v), {"m": m, "v": v}
 

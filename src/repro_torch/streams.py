@@ -158,6 +158,16 @@ def chain_rng(seed: int, chain: int) -> np.random.Generator:
     return np.random.default_rng((int(seed), int(chain)))
 
 
+def bucket_chain_rng(seed: int, bucket: int, chain: int) \
+        -> np.random.Generator:
+    """Chain ``chain`` of bucket ``bucket``; bucket 0 is the flat
+    `chain` stream (bucket-0 == flat-plan bit-equality)."""
+    if bucket == 0:
+        return chain_rng(seed, chain)
+    return np.random.default_rng(
+        (int(seed), BUCKET_TAG, int(bucket), int(chain)))
+
+
 def straggler_rng(seed: int, rnd: int) -> np.random.Generator:
     return np.random.default_rng((int(seed), int(rnd), STRAGGLER_TAG))
 

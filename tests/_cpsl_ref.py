@@ -40,6 +40,7 @@ MODULES = {
     "checkpointer": "repro.checkpoint.checkpointer",
     "configs": "repro.configs.base",
     "streams": "repro.streams",
+    "batched": "repro.sim.batched",
 }
 
 _MISSING = object()

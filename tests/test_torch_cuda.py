@@ -8,6 +8,7 @@ reference, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -m requires_cuda tests/test_torch_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
@@ -453,3 +454,106 @@ def test_fused_round_runs_without_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert bool(torch.isfinite(mt["loss"])) and int(state["step"]) == 2
+
+
+# --------------------------------------------------------------------------
+# experiment fleets on the card
+# --------------------------------------------------------------------------
+
+def _fleet_setup(device):
+    """Cluster sizes (1, 2) over 4 devices, seed 0: (M, K) = (4, 1) and
+    (2, 2), padded to (4, 2), one round, eval at its end."""
+    from repro_torch.configs.base import CPSLConfig, FleetConfig
+    from repro_torch.data.synthetic import synthetic_mnist
+    from repro_torch.train.trainer import FleetRunner
+    xtr, ytr, xte, yte = synthetic_mnist(600, 50, seed=0)
+    return FleetRunner(xtr, ytr, FleetConfig(
+        rounds=1, seeds=(0,), cluster_sizes=(1, 2), n_devices=4,
+        samples_per_device=60, eval_every=1), CPSLConfig(
+        cut_layer=3, batch_per_device=8, local_epochs=1), xte=xte, yte=yte,
+        device=device)
+
+
+def _max_rel(a, b):
+    from repro_torch import tree
+    return max(float((x.double().cpu() - y.double().cpu()).abs().max())
+               / max(1.0, float(x.double().abs().max()))
+               for x, y in zip(tree.leaves(a), tree.leaves(b)))
+
+
+def test_padded_fleet_on_card_matches_cpu(cuda):
+    """A 2-replica padded fleet from one initial state: card vs CPU within
+    1e-5 per leaf, integer leaves equal, the same NaN slots."""
+    from repro_torch import tree
+    runs = {}
+    init = _fleet_setup("cpu").cpsl.init_fleet_state((0, 0), device="cpu")
+    for dev in ("cpu", cuda):
+        fr = _fleet_setup(dev)
+        out = fr.run(tree.map(torch.clone, init))
+        runs[str(dev)] = (fr.states, out)
+    (s_cpu, o_cpu), (s_card, o_card) = runs["cpu"], runs[str(cuda)]
+    assert _max_rel(s_cpu, s_card) <= 1e-5
+    for a, b in zip(tree.leaves(s_cpu), tree.leaves(s_card)):
+        if not a.dtype.is_floating_point:
+            assert torch.equal(a, b.cpu())
+    for ra, rb in zip(o_cpu["replicas"], o_card["replicas"]):
+        np.testing.assert_allclose(rb["loss"], ra["loss"], rtol=1e-5)
+        np.testing.assert_allclose(rb["acc"], ra["acc"], atol=1e-6)
+
+
+def test_run_fleet_runs_without_host_sync(cuda):
+    from repro_torch import tree
+    fr = _fleet_setup(cuda)
+    states = fr.cpsl.init_fleet_state(fr.plan.seeds, cuda)
+    tb = fr.upload()
+    kw = dict(eval_data=fr.dsd.eval_data, eval_every=1,
+              cluster_mask=tb["cluster_mask"], client_mask=tb["client_mask"])
+    fr.cpsl.run_fleet(tree.map(torch.clone, states), fr.dsd.data, tb["idx"],
+                      tb["weights"], **kw)              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        states, mt = fr.cpsl.run_fleet(states, fr.dsd.data, tb["idx"],
+                                       tb["weights"], **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(mt["loss"]).all())
+    assert states["step"].tolist() == [4, 2]
+
+
+def test_fleet_replica_matches_solo_on_card(cuda):
+    """Each replica of the padded fleet against the solo
+    ``run_training_fused`` of its own unpadded layout, on the card: within
+    1e-5 per leaf after the first cluster (later a ReLU or pool crossing
+    can part them, see tests/test_torch_fleet.py), integer leaves equal
+    after the round."""
+    import dataclasses
+    from repro_torch import streams, tree
+    from repro_torch.core.cpsl import CPSL
+    fr = _fleet_setup(cuda)
+    tb = fr.upload()
+    for clusters in (1, None):
+        c = slice(None, clusters)
+        states, _ = fr.cpsl.run_fleet(
+            fr.cpsl.init_fleet_state(fr.plan.seeds, cuda), fr.dsd.data,
+            tb["idx"][:, :, c], tb["weights"][:, c],
+            cluster_mask=tb["cluster_mask"][:, c],
+            client_mask=tb["client_mask"][:, c])
+        for e, sp in enumerate(fr.specs):
+            Me = min(sp["n_clusters"], clusters or sp["n_clusters"])
+            Ke = sp["cluster_size"]
+            cp = CPSL(fr.cpsl.split, dataclasses.replace(
+                fr.ccfg, n_clusters=Me, cluster_size=Ke))
+            solo, _ = cp.run_training_fused(
+                cp.init_state(streams.model_generator(sp["seed"], cuda)),
+                fr.dsd.data, fr.plan.idx[e, :, :Me, :, :Ke],
+                fr.plan.weights[e, :Me, :Ke])
+            for (path, a), (_, b) in zip(tree.flatten_with_path(solo),
+                                         tree.flatten_with_path(states)):
+                b = b[e][:a.shape[0]] if a.dim() else b[e]
+                if not a.dtype.is_floating_point:
+                    assert torch.equal(a, b), (e, path)
+                elif clusters == 1:
+                    err = float((a - b).abs().max()) / max(
+                        1.0, float(a.abs().max()))
+                    assert err <= 1e-5, (e, path, err)

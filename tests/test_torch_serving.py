@@ -293,7 +293,7 @@ def test_port_never_imports_jax_or_reference():
             "repro_torch.kernels.ssd.ops, repro_torch.launch.train, "
             "repro_torch.train.trainer, repro_torch.core.cpsl, "
             "repro_torch.core.profile, repro_torch.checkpoint.checkpointer, "
-            "repro_torch.convert, chip_smoke; "
+            "repro_torch.convert, repro_torch.sim.batched, chip_smoke; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(

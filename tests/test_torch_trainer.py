@@ -80,7 +80,8 @@ def _trainers(ref, data, tmp_path, port_ccfg=(), **tkw):
 # control plane
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kind", ["gibbs", "heuristic", "random", "fixed"])
+@pytest.mark.parametrize("kind", ["gibbs", "gibbs-mc", "heuristic", "random",
+                                  "fixed"])
 def test_plan_round_decision_identical(ref, data, tmp_path, kind):
     rt, tt = _trainers(ref, data, tmp_path, resource_mgmt=kind)
     for rnd in range(3):
@@ -234,8 +235,21 @@ def test_stop_checkpoints_at_the_round_boundary(ref, data, tmp_path):
 
 
 def test_gibbs_mc_raises(ref, data, tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        _trainers(ref, data, tmp_path, resource_mgmt="gibbs-mc")
+    """``"gibbs-mc"`` no longer raises: it plans like the reference's
+    best-of-R lockstep chains; an unknown planner still raises."""
+    rt, tt = _trainers(ref, data, tmp_path, resource_mgmt="gibbs-mc",
+                       gibbs_chains=3)
+    for rnd in range(2):
+        rc, rx, rl = rt._plan_round(3, rnd)
+        tc, tx, tl = tt._plan_round(3, rnd)
+        assert [list(map(int, c)) for c in rc] == \
+            [list(map(int, c)) for c in tc]
+        for a, b in zip(rx, tx):
+            np.testing.assert_array_equal(a, b)
+        assert tl == rl
+    _, bad = _trainers(ref, data, tmp_path / "bad", resource_mgmt="annealing")
+    with pytest.raises(ValueError, match="annealing"):
+        bad._plan_round(3, 0)
 
 
 # --------------------------------------------------------------------------

@@ -48,10 +48,19 @@ failures is caught:
    planner (``sim.batched``: SAA against the looped SAA, then 3 rounds of
    ``CPSLTrainer`` with ``resource_mgmt="gibbs-mc"``). It launches no
    hand-written kernel either.
+7. lm_train: split-LM CPSL training (``CPSL.run_round``) at full width
+   and depth, gemma2-2b (S = 5120) through K1 and mamba2-2.7b (S = 4096)
+   through K2, both bf16 with remat, 2 clusters of 2 devices, 2 rounds,
+   the cut from SAA; each kernel's launches must equal 2 * (K*v + layers
+   - v) a step and the other's 0, the step losses must fall, and one
+   block of each kind must give the plain path's parameter gradients
+   through the kernel's ``autograd.Function`` (f32 and bf16); then
+   ``launch/train.py --arch gemma2-2b --reduced`` through
+   ``CPSLTrainer``.
 
 Prints one ``{"train": {...}}`` line, one ``{"fleet": {...}}`` line, one
-``{"kernels": [...]}`` line and, last, the device line ``{"ok": true,
-"device": {...}}``.
+``{"lm_train": {...}}`` line, one ``{"kernels": [...]}`` line and, last,
+the device line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1150,16 +1159,368 @@ def fleet_phase(train: dict, smi: str) -> dict:
     return out
 
 
-def device_profile(fn, top: int = 8) -> dict:
+# --------------------------------------------------------------------------
+# 7. lm_train: split-LM CPSL training, K1 (gemma2-2b) and K2 (mamba2-2.7b)
+# --------------------------------------------------------------------------
+
+# N = 4 devices in M = 2 clusters of K = 2, B = 2 sequences a device, L = 1,
+# 2 rounds (4 cluster steps); the cut from SAA over cuts 1..6 of the full
+# architecture's profile with examples/cpsl_llm_training.py's network.
+# Against the registry's train_4k cell (global batch 256) a cluster step
+# takes 4 sequences. SGD at CPSLConfig's lrs (0.05 device, 0.25 server).
+LM_M, LM_K, LM_B, LM_ROUNDS = 2, 2, 2, 2
+LM_LOSS_CHUNK = 512       # the CE never holds (B*S, 256000) f32 logits
+LM_MODELS = {
+    # arch: (seq, kernel module, the kernel path's cfg, the plain path's)
+    "gemma2-2b": (PROMPT, "flash_attention", {"attn_impl": "pallas"},
+                  {"attn_impl": "chunked"}),
+    "mamba2-2.7b": (4096, "ssd", {"ssd_impl": "pallas"},
+                    {"ssd_impl": "chunked"}),
+}
+# kernel path vs plain path, per-leaf parameter gradients of one block at
+# full width, err / max(1, max|g|): tests/test_kernels.py's tolerances
+LM_GRAD_TOL = {("flash_attention", "float32"): 1e-4,
+               ("ssd", "float32"): 5e-5,
+               ("flash_attention", "bfloat16"): 3e-2,
+               ("ssd", "bfloat16"): 5e-2}
+
+
+def _lm_launches_per_step(cfg, kernel: str, v: int) -> int:
+    """K1 (or K2) launches in one fused CPSL step with remat: every layer
+    of the kernel's kind runs forward once and again in backward (the
+    checkpoint's recompute; the Function's backward itself is plain
+    torch), the device side once per client: 2 * (K*v + n_layers - v)
+    when every layer is of that kind."""
+    kind = "attn" if kernel == "flash_attention" else "mamba"
+    specs = cfg.layer_specs()
+    dev = sum(s.mixer == kind for s in specs[:v])
+    srv = sum(s.mixer == kind for s in specs[v:])
+    return 2 * (LM_K * dev + srv)
+
+
+def _lm_grad_check(cfg, kernel: str, impl: dict, plain: dict,
+                   seq: int) -> dict:
+    """One block of each kind of the model at full width, B = 1: per-leaf
+    parameter gradients through the kernel path against the plain path,
+    in float32 and in bfloat16 compute (f32 params), within LM_GRAD_TOL;
+    the kernel must launch on the kernel path, no leaf's gradient may be
+    all zero."""
+    import torch
+    from repro_torch import streams, tree
+    from repro_torch.models import transformer as tfm
+    modules = _kernel_modules()
+    out = {}
+    for spec in dict.fromkeys(cfg.layer_specs()):
+        label = f"{spec.mixer}_window{spec.window}"
+        for dtype in ("float32", "bfloat16"):
+            c = cfg.replace(dtype=dtype)
+            params = tfm.block_init(streams.model_generator(3, "cuda"), c,
+                                    spec)
+            gen = streams.sampler_generator(4, "cuda")
+            x = torch.randn((1, seq, c.d_model), device="cuda",
+                            generator=gen).to(getattr(torch, dtype))
+            w = torch.randn((1, seq, c.d_model), device="cuda",
+                            generator=gen)
+            pos = torch.arange(seq, device="cuda")
+            grads = []
+            for kw in (impl, plain):
+                p = tree.map(lambda t: t.detach().requires_grad_(), params)
+                before = modules[kernel].launches
+                y, _ = tfm.block_apply(p, x, c.replace(**kw), spec, pos)
+                loss = (y.float() * w).sum() / seq
+                grads.append(torch.autograd.grad(loss, tree.leaves(p)))
+                launched = modules[kernel].launches - before
+                if (launched > 0) != (kw is impl):
+                    raise AssertionError(f"{cfg.name} {label} {dtype}: "
+                                         f"{kw} launched {kernel} "
+                                         f"{launched} times")
+            err = max(float((a - b).abs().max())
+                      / max(1.0, float(b.abs().max()))
+                      for a, b in zip(*grads))
+            zero = [i for i, g in enumerate(grads[0])
+                    if not bool(g.abs().max() > 0)]
+            tol = LM_GRAD_TOL[kernel, dtype]
+            if zero or not err <= tol:
+                raise AssertionError(f"{cfg.name} {label} {dtype}: kernel "
+                                     f"vs plain grads {err} (limit {tol}); "
+                                     f"all-zero leaves {zero}")
+            out[f"{label}_{dtype}"] = {"max_rel_err": err, "tol": tol}
+            del params, grads, x, w
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_kernel_bwd(cfg, kernel: str, seq: int) -> dict:
+    """At the server's shape (K*B sequences) in bf16: one kernel launch
+    (the Function's forward) against the Function's backward (the plain
+    recomputation and its gradient), CUDA events."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    Bs = LM_K * LM_B
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (scale * torch.randn(shape, device="cuda", generator=gen)
+                ).to(dtype)
+
+    if kernel == "flash_attention":
+        from repro_torch.kernels.flash_attention import ops
+        G, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        R = cfg.n_heads // G
+        ins = [rnd(Bs, seq, G, R, hd), rnd(Bs, seq, G, hd),
+               rnd(Bs, seq, G, hd)]
+        args = (True, cfg.pattern[0].window, cfg.attn_softcap, 0)
+        shape = f"q ({Bs},{seq},{G},{R},{hd}) bf16, window " \
+                f"{cfg.pattern[0].window}"
+
+        def fwd():
+            return ops.flash_attention(*ins, *args)
+    else:
+        from repro_torch.kernels.ssd import ops
+        from repro_torch.models.mamba2 import mamba_dims
+        _, H, _ = mamba_dims(cfg)
+        s = cfg.ssm
+        ins = [rnd(Bs, seq, H, s.headdim),
+               rnd(Bs, seq, H, dtype=torch.float32, scale=0.1).abs(),
+               -torch.rand(H, device="cuda", generator=gen) - 0.5,
+               rnd(Bs, seq, s.ngroups, s.d_state, scale=0.3),
+               rnd(Bs, seq, s.ngroups, s.d_state, scale=0.3)]
+        shape = f"x ({Bs},{seq},{H},{s.headdim}) bf16, B = C " \
+                f"({Bs},{seq},{s.ngroups},{s.d_state})"
+
+        def fwd():
+            return ops.ssd(*ins, chunk=s.chunk_size)[0]
+    with torch.no_grad():
+        fwd_ms = time_ms(fwd, 3)
+    ins = [t.requires_grad_() for t in ins]
+    out = fwd()
+    g = torch.randn_like(out)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, ins, g,
+                                                 retain_graph=True), 2)
+    del out, ins
+    torch.cuda.empty_cache()
+    return {"shape": shape, "kernel_fwd_ms": fwd_ms,
+            "function_bwd_ms": bwd_ms}
+
+
+def lm_train_model(arch: str, smi: str) -> dict:
+    """One model of the lm_train phase (see ``lm_train_phase``)."""
+    import numpy as np
+    import torch
+    from repro_torch import streams, tree
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import CPSLConfig
+    from repro_torch.core.channel import NetworkCfg
+    from repro_torch.core.cpsl import CPSL, to_device
+    from repro_torch.core.profile import lm_profile
+    from repro_torch.core.resource import saa_cut_selection
+    from repro_torch.core.splitting import make_split_model
+    from repro_torch.data.pipeline import LMClusterData, batch_seed
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.models import transformer as tfm
+    start = time.perf_counter()
+    seq, kernel, impl, plain = LM_MODELS[arch]
+    cfg = registry.get(arch).replace(dtype="bfloat16", param_dtype="float32",
+                                     remat=True, loss_chunk=LM_LOSS_CHUNK,
+                                     **impl)
+    N = LM_M * LM_K
+    t0 = time.perf_counter()
+    v, means = saa_cut_selection(
+        lm_profile(registry.get(arch), seq),
+        NetworkCfg(n_devices=N, f_mean_range=(5e9, 50e9),
+                   snr_mean_range_db=(15, 35)), B=LM_B, L=1,
+        n_clusters=LM_M, cluster_size=LM_K, n_samples=2, gibbs_iters=40,
+        cuts=range(1, 7))
+    saa_s = time.perf_counter() - t0
+    cp = CPSL(make_split_model(cfg, v), CPSLConfig(
+        cut_layer=v, n_clusters=LM_M, cluster_size=LM_K, local_epochs=1,
+        batch_per_device=LM_B))
+    torch.cuda.reset_peak_memory_stats()
+    state = cp.init_state(streams.model_generator(0, "cuda"))
+    n_dev = sum(t[0].numel() for t in tree.leaves(state["dev"]))
+    n_srv = sum(t.numel() for t in tree.leaves(state["srv"]))
+    data = LMClusterData(MarkovLM(cfg.vocab_size, seed=0), N, LM_B, seq,
+                         seed=0)
+    clusters = [list(range(m * LM_K, (m + 1) * LM_K)) for m in range(LM_M)]
+    batches = {(r, m): {k: to_device(a, "cuda") for k, a in
+                        data.cluster_batch(clusters[m], seed=batch_seed(
+                            0, r, m, 0)).items()}
+               for r in range(LM_ROUNDS) for m in range(LM_M)}
+    torch.cuda.synchronize()
+    times = {"setup_s": time.perf_counter() - start}
+    log(f"lm_train {arch}: SAA v* = {v} in {saa_s:.1f} s; "
+        f"{n_dev / 1e9:.3f} B device-side params a client, "
+        f"{n_srv / 1e9:.3f} B server-side")
+
+    # the main path, with the kernels' counts read around it: 2 rounds of
+    # CPSL.run_round; a step starts where batch_fn is called, and each
+    # step's loss is kept (a device scalar) as cluster_step returns it
+    modules = _kernel_modules()
+    marks, step_losses, rnd = [], [], 0
+    cluster_step = cp.cluster_step
+
+    def batch_fn(m, l):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return batches[rnd, m]
+
+    def recording_step(state, batch, lr_scale=None):
+        state, mt = cluster_step(state, batch, lr_scale=lr_scale)
+        step_losses.append(mt["loss"])
+        return state, mt
+
+    cp.cluster_step = recording_step
+    for m in modules.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    for rnd in range(LM_ROUNDS):
+        state, _ = cp.run_round(state, batch_fn)
+        marks.append(time.perf_counter())       # run_round synced the loss
+    wall_s = time.perf_counter() - t0
+    launches = {n: m.launches for n, m in modules.items()}
+    cp.cluster_step = cluster_step
+    steps = LM_ROUNDS * LM_M
+    step_ms = [1e3 * (marks[i + 1] - marks[i])
+               for r in range(LM_ROUNDS)
+               for i in range(r * (LM_M + 1), r * (LM_M + 1) + LM_M)]
+    losses = [float(x) for x in step_losses]
+    expect = _lm_launches_per_step(cfg, kernel, v)
+    other = [n for n in modules if n != kernel]
+    if launches[kernel] != steps * expect or any(launches[n]
+                                                 for n in other):
+        raise AssertionError(f"{arch}: launches {launches} in {steps} "
+                             f"steps; expected {expect} of {kernel} a step "
+                             f"(2 * (K*v + layers - v)) and none of "
+                             f"{other}")
+    if len(losses) != steps or not all(np.isfinite(losses)) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch}: step losses {losses} not finite "
+                             f"and falling")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # one step's forward and backward (the optimizer step aside), split
+    # by the host clock, under one device profile
+    split = {}
+
+    def fwd_bwd(b=batches[0, 0]):
+        dev_p = tree.map(lambda t: t.detach().requires_grad_(), state["dev"])
+        srv_p = tree.map(lambda t: t.detach().requires_grad_(), state["srv"])
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            total, _ = cp._total_loss(dev_p, srv_p, b)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            torch.autograd.grad(total,
+                                tree.leaves(dev_p) + tree.leaves(srv_p))
+        torch.cuda.synchronize()
+        split.update(fwd_ms=1e3 * (t1 - t0),
+                     bwd_ms=1e3 * (time.perf_counter() - t1))
+
+    t0 = time.perf_counter()
+    prof = device_profile(fwd_bwd, host_ops=False)
+    times["profile_s"] = time.perf_counter() - t0
+    log(f"profile lm_train {arch} forward + backward: " + json.dumps(prof))
+
+    # export and a short forward of the assembled model
+    t0 = time.perf_counter()
+    params, out_cfg = cp.export_params(state)
+    del state
+    toks = batches[0, 0]["tokens"][0, :1, :64]
+    with torch.no_grad():
+        logits, _ = tfm.forward(params, toks, out_cfg)
+    if logits.shape != (1, toks.shape[1], cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch}: exported forward {logits.shape}")
+    del params, logits, batches
+    torch.cuda.empty_cache()
+    times["export_forward_s"] = time.perf_counter() - t0
+
+    med = float(np.median(step_ms))
+    t0 = time.perf_counter()
+    kernel_bwd = _lm_kernel_bwd(cfg, kernel, seq)
+    times["kernel_bwd_s"] = time.perf_counter() - t0
+    # the Function's backward once per forward launch, all at the
+    # server's batch: an estimate from the measured pieces
+    kernel_bwd["recompute_share_of_step_est"] = (
+        expect / 2 * kernel_bwd["function_bwd_ms"] / med)
+    t0 = time.perf_counter()
+    grads = _lm_grad_check(registry.get(arch), kernel, impl, plain, seq)
+    times["grad_check_s"] = time.perf_counter() - t0
+    out = {
+        "model": arch, "card": smi, "seq": seq, "v": v, "saa_s": saa_s,
+        "saa_means_s": [float(x) for x in means],
+        "layout": {"N": N, "M": LM_M, "K": LM_K, "B": LM_B, "L": 1,
+                   "rounds": LM_ROUNDS, "steps": steps,
+                   "dtype": "bfloat16", "param_dtype": "float32",
+                   "remat": True, "loss_chunk": LM_LOSS_CHUNK,
+                   "optimizer": "sgd", "lr_device": cp.ccfg.lr_device,
+                   "lr_server": cp.ccfg.lr_server},
+        "params_b": {"device_per_client": n_dev / 1e9,
+                     "server": n_srv / 1e9,
+                     "trainable": (LM_K * n_dev + n_srv) / 1e9},
+        "step_losses": losses, "wall_s": wall_s, "step_ms": step_ms,
+        "step_ms_median": med, "step_split_ms": split,
+        "device_busy_share": prof["busy_share"], "profile": prof,
+        "peak_memory_gb": peak_gb,
+        "launches_per_step": {n: c / steps for n, c in launches.items()},
+        "launches_per_step_expected": expect, "kernel_bwd": kernel_bwd,
+        "grad_check": grads, "times": times,
+        "phase_s": time.perf_counter() - start}
+    log(f"lm_train {arch}: " + json.dumps(out))
+    return out
+
+
+def lm_train_phase(smi: str) -> dict:
+    """Split-LM CPSL training at full width and depth: gemma2-2b through
+    K1 in every attention layer (S = 5120, past the 4096 window), then
+    mamba2-2.7b through K2 in every layer (S = 4096, train_4k's
+    sequence), both bf16 with f32 params, remat on, random seeded
+    weights, synthetic Markov tokens. For each: SAA over cuts 1..6, 2
+    rounds of ``CPSL.run_round`` on seeded ``LMClusterData`` batches (the
+    counts read around them), one forward and backward under the
+    profiler with their split, ``export_params`` and a forward of the
+    assembled model, the kernel's forward against its Function's backward
+    at the server's shape, and one block of each kind through the kernel
+    path against the plain path. Then the launcher with ``--arch
+    gemma2-2b --reduced --rounds 2`` through ``CPSLTrainer`` and its
+    checkpoint. Checks, none
+    caught: finite, falling step losses; each kernel's launches equal to
+    2 * (K*v + layers - v) a step and the other kernel's 0; the block
+    gradients within LM_GRAD_TOL; the launcher's losses finite."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.launch import train as tlaunch
+    out = {arch: lm_train_model(arch, smi) for arch in LM_MODELS}
+    ckpt = ROOT / "build" / "chip_smoke_ckpt" / "lm"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    hist = tlaunch.main(["--arch", "gemma2-2b", "--reduced", "--rounds",
+                         "2", "--clusters", "2", "--cluster-size", "2",
+                         "--ckpt-dir", str(ckpt)])
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if [h["round"] for h in hist] != [0, 1] or not all(
+            np.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"launcher --arch gemma2-2b --reduced: {hist}")
+    out["launcher_reduced_gemma2"] = {
+        "wall_s": time.perf_counter() - t0,
+        "losses": [h["loss"] for h in hist]}
+    return out
+
+
+def device_profile(fn, top: int = 8, host_ops: bool = True) -> dict:
     """One call of ``fn`` under torch.profiler: its host wall time, the
     device time summed over the kernels it ran (one stream, so the sum is
     the busy time), the busy share of the wall time, and the ``top``
-    kernels by device time."""
+    kernels by device time. ``host_ops=False`` traces the card alone:
+    for a call of ~10^5 kernel launches, tracing the host's ops too costs
+    minutes of post-processing and adds host time to every op."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1204,6 +1565,7 @@ def main() -> int:
     mamba = mamba_serve_phase()
     train = train_phase()
     fleet = fleet_phase(train, smi)
+    lm_train = lm_train_phase(smi)
 
     def mean(key):
         return sum(r[key] for r in shapes) / len(shapes)
@@ -1214,6 +1576,8 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
         "launches": gemma["launches_per_generate"]["flash_attention"],
+        "train_launches_per_step": lm_train["gemma2-2b"][
+            "launches_per_step"]["flash_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         "ms": mean("ms"), "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"),
@@ -1228,6 +1592,8 @@ def main() -> int:
         "source": "src/repro_torch/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:28",
         "launches": mamba["launches_per_generate"]["ssd"],
+        "train_launches_per_step": lm_train["mamba2-2.7b"][
+            "launches_per_step"]["ssd"],
         "max_abs_err": ssd_model["max_abs_err"],
         "ms": ssd_model["ms"], "plain_ms": ssd_model["plain_ms"],
         "bound_ms": ssd_model["bound_ms"],
@@ -1243,6 +1609,7 @@ def main() -> int:
         "short_chunks": ssd_short, "sweep_max_abs_err": ssd_worst}]
     print(json.dumps({"train": train}))
     print(json.dumps({"fleet": fleet}))
+    print(json.dumps({"lm_train": lm_train}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

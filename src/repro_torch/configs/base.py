@@ -1,6 +1,7 @@
 """Model config dataclasses (the port's own copy of ``repro.configs.base``'s
-model part, ``CPSLConfig`` and ``FleetConfig``; the simulator and mesh
-configs come with their slices).
+model part, ``CPSLConfig``, ``FleetConfig`` and the shape cells
+``ShapeCfg``/``SHAPES``; the simulator and mesh configs come with their
+slices).
 
 A ModelConfig fully describes one architecture in the zoo. Layer stacks are
 an optional unrolled ``prologue`` followed by a periodic ``pattern``
@@ -200,3 +201,20 @@ class FleetConfig:
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeCfg:
+    """One input-shape cell of the LM zoo."""
+    name: str                        # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k":    ShapeCfg("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCfg("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k":  ShapeCfg("decode_32k", 32768, 128, "decode"),
+    "long_500k":   ShapeCfg("long_500k", 524288, 1, "decode"),
+}

@@ -1,15 +1,25 @@
-"""Architecture registry: ``--arch <id>`` lookup and reduced configs for
-CPU tests (``input_specs`` and ``concrete_batch`` come with the training
-slice)."""
+"""Architecture registry: ``--arch <id>`` lookup, input specs per shape
+cell, and reduced configs for CPU tests.
+
+The 4 shape cells (``configs.base.SHAPES``):
+    train_4k:    seq 4096,   global_batch 256  -> CPSL train step
+    prefill_32k: seq 32768,  global_batch 32   -> prefill
+    decode_32k:  seq 32768,  global_batch 128  -> one decode step
+    long_500k:   seq 524288, global_batch 1    -> one decode step; only
+                 for the sub-quadratic archs (mamba2, jamba).
+"""
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
+
+import torch
 
 from repro_torch.configs import (chameleon_34b, deepseek_v2_lite_16b,
                                  gemma2_2b, jamba_v01_52b, mamba2_2p7b,
                                  phi35_moe_42b, qwen2_05b, qwen25_14b,
                                  qwen3_32b, whisper_small)
-from repro_torch.configs.base import MLACfg, ModelConfig
+from repro_torch.configs.base import MLACfg, ModelConfig, ShapeCfg
 
 ARCHS = {
     "whisper-small": whisper_small.config,
@@ -33,6 +43,37 @@ def get(name: str) -> ModelConfig:
 
 def list_archs():
     return sorted(ARCHS)
+
+
+# archs eligible for the long_500k cell (sub-quadratic sequence mixing)
+LONG_CTX_ARCHS = {"mamba2-2.7b", "jamba-v0.1-52b"}
+
+
+def cells(arch: str):
+    """Shape cells applicable to this arch."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch in LONG_CTX_ARCHS:
+        out.append("long_500k")
+    return out
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeCfg) -> Dict:
+    """The input batch of a shape cell as ``meta`` tensors (shapes and
+    dtypes, no storage): tokens and labels for train, tokens for prefill
+    (plus frames for enc-dec), one token column for decode."""
+    gb, S = shape.global_batch, shape.seq_len
+
+    def meta(shp, dtype=torch.int32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    frames = ({"frames": meta((gb, cfg.enc_seq, cfg.d_model),
+                              getattr(torch, cfg.dtype))}
+              if cfg.encdec else {})
+    if shape.kind == "train":
+        return {"tokens": meta((gb, S)), "labels": meta((gb, S)), **frames}
+    if shape.kind == "prefill":
+        return {"tokens": meta((gb, S)), **frames}
+    return {"tokens": meta((gb,))}
 
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
@@ -65,3 +106,23 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
         kw["n_layers"] = 4
         kw["enc_seq"] = 24
     return cfg.replace(**kw)
+
+
+def concrete_batch(gen: torch.Generator, cfg: ModelConfig, *, batch: int,
+                   seq: int) -> Dict:
+    """A small random int32 batch on ``gen``'s device, drawn from
+    ``gen``."""
+    dev = gen.device
+    out = {
+        "tokens": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                generator=gen, device=dev,
+                                dtype=torch.int32),
+        "labels": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                generator=gen, device=dev,
+                                dtype=torch.int32),
+    }
+    if cfg.encdec:
+        out["frames"] = torch.randn(
+            (batch, cfg.enc_seq, cfg.d_model), generator=gen, device=dev
+        ).to(getattr(torch, cfg.dtype))
+    return out

@@ -190,10 +190,8 @@ class CPSL:
                     aux.reshape(E, K))
         if not self.ccfg.unroll_clients:
             return self.split.device_apply_clients(dev, batch)
-        K = tree.leaves(dev)[0].shape[0]
-        outs = [self.split.device_apply(tree.map(lambda t: t[k], dev),
-                                        tree.map(lambda t: t[k], batch))
-                for k in range(K)]
+        outs = [self.split.device_apply(d, b)
+                for d, b in zip(tree.unbind(dev), tree.unbind(batch))]
         return (torch.stack([o[0] for o in outs]),
                 torch.stack([o[1] for o in outs]))
 

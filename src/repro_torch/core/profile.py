@@ -197,3 +197,18 @@ def paper_constants_profile() -> CutProfile:
         gamma_sF=np.array([86.01e6, 0.0]),
         gamma_sB=np.array([86.01e6, 0.0]),
     )
+
+
+def profile_for(cfg_or_name, seq: int = 4096, **kw) -> CutProfile:
+    """The cut profile of ``"lenet"``, ``"paper"`` (the paper's constants)
+    or an LM arch (an id or a ``ModelConfig``) at ``seq`` tokens."""
+    if isinstance(cfg_or_name, str):
+        if cfg_or_name == "lenet":
+            return lenet_profile(**kw)
+        if cfg_or_name == "paper":
+            return paper_constants_profile()
+        from repro_torch.configs import registry
+        cfg_or_name = registry.get(cfg_or_name)
+    if cfg_or_name.family == "cnn":
+        return lenet_profile(**kw)
+    return lm_profile(cfg_or_name, seq, **kw)

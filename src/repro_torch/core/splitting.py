@@ -15,11 +15,17 @@ A ``SplitModel`` bundles:
     smashed_spec(batch_size, seq)           -> a ``meta`` tensor of the
                                                smashed data's shape/dtype
 
-This slice ports the paper's LeNet (layer-granular Table III split). The
-LM and enc-dec splits come with ROADMAP slices 4 and 6.
+Cut-layer conventions per family:
+  - LM (dense/ssm): device = embed + blocks[:v]; server = blocks[v:] +
+    final norm + an untied head (the device owns the embedding table; the
+    server cannot share it across the wireless link).
+  - LeNet (the paper's model): layer-granular Table III split.
+The enc-dec split comes with ROADMAP slice 6; MoE and MLA layers with
+slice 5.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -27,7 +33,9 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import common as cm
 from repro_torch.models import lenet as ln
+from repro_torch.models import transformer as tfm
 
 
 @dataclass(frozen=True)
@@ -144,6 +152,119 @@ def make_lenet_split(v: int, input_hw: int = 28,
                       eval_metrics_replicas=eval_metrics_replicas)
 
 
+# --------------------------------------------------------------------------
+# LM split
+# --------------------------------------------------------------------------
+
+def _split_cfgs(cfg: ModelConfig, v: int):
+    """(device cfg, server cfg) for a cut after layer v. The device runs
+    layers [:v] as an unrolled prologue; the server runs the rest, its
+    prologue the remainder of a period cut mid-pattern (gemma2 at an odd
+    v starts on a global layer)."""
+    specs = cfg.layer_specs()
+    if not 1 <= v < len(specs):
+        raise ValueError(f"cut {v} out of range for {cfg.name} "
+                         f"({len(specs)} layers)")
+    dev_cfg = cfg.replace(prologue=tuple(specs[:v]), pattern=(), n_layers=v)
+    n_pro = len(cfg.prologue)
+    if v < n_pro:
+        srv_cfg = cfg.replace(prologue=cfg.prologue[v:],
+                              n_layers=cfg.n_layers - v)
+    else:
+        off = (v - n_pro) % len(cfg.pattern)
+        srv_pro = cfg.pattern[off:] if off else ()
+        srv_cfg = cfg.replace(prologue=tuple(srv_pro),
+                              n_layers=cfg.n_layers - v)
+    return dev_cfg, srv_cfg
+
+
+def make_lm_split(cfg: ModelConfig, v: int) -> SplitModel:
+    """The LM split at cut v. Params are the reference's trees: the device
+    ``{"embed": {"tok"}, "prologue": [v blocks], "stack": []}``, the
+    server ``{"prologue", "stack" (period-stacked), "final_norm", "head"
+    (D, V)}``."""
+    for spec in cfg.layer_specs():
+        tfm._unported(spec, cfg)
+    dev_cfg, srv_cfg = _split_cfgs(cfg, v)
+    pdt = cm.pdtype(cfg)
+
+    def init_device(generator):
+        return {
+            "embed": {"tok": cm._normal(generator,
+                                        (cfg.vocab_size, cfg.d_model), 0.02,
+                                        pdt)},
+            "prologue": [tfm.block_init(generator, cfg, s)
+                         for s in dev_cfg.prologue],
+            "stack": [],
+        }
+
+    def init_server(generator):
+        params = {
+            "prologue": [tfm.block_init(generator, cfg, s)
+                         for s in srv_cfg.prologue],
+            "final_norm": cm.norm_init(cfg.d_model, cfg.norm_kind, pdt,
+                                       generator.device),
+            "head": cm._normal(generator, (cfg.d_model, cfg.vocab_size),
+                               1.0 / math.sqrt(cfg.d_model), pdt),
+        }
+        n = srv_cfg.n_periods
+        # leaves (n, ...); a server with no whole period keeps (0, ...)
+        # leaves, as the reference's vmapped init does
+        params["stack"] = [
+            tree.map(lambda t: t[:n], tfm._stack(
+                [tfm.block_init(generator, cfg, s) for _ in range(max(n, 1))]))
+            for s in srv_cfg.pattern]
+        return params
+
+    def device_apply(dev, batch):
+        tokens = batch["tokens"]
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x = cm.embed_apply(dev["embed"], tokens, cfg)
+        return tfm._stack_forward(dev, x, dev_cfg, positions)
+
+    def device_apply_clients(dev, batch):
+        """A Python loop over the K clients (``torch.func.vmap`` cannot see
+        through a kernel launch), every K-stacked leaf unbound once."""
+        outs = [device_apply(d, b)
+                for d, b in zip(tree.unbind(dev), tree.unbind(batch))]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
+
+    def server_loss(srv, smashed, batch):
+        positions = torch.arange(smashed.shape[1], device=smashed.device)
+        x, aux = tfm._stack_forward(srv, smashed, srv_cfg, positions)
+        x = cm.apply_norm(srv["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+        loss = cm.lm_head_loss(srv["head"], x, batch["labels"], cfg,
+                               batch.get("mask"))
+        return loss, aux
+
+    def export(dev, srv):
+        """Re-stack into a standard transformer params tree (untied)."""
+        flat = list(dev["prologue"]) + list(srv["prologue"])
+        srv_periods = list(zip(*[tree.unbind(t) for t in srv["stack"]]))
+        for period in srv_periods:
+            flat += list(period)
+        n_pro, P = len(cfg.prologue), len(cfg.pattern)
+        body = flat[n_pro:]
+        params = {
+            "embed": {"tok": dev["embed"]["tok"], "head": srv["head"]},
+            "final_norm": srv["final_norm"],
+            "prologue": flat[:n_pro],
+            "stack": [tfm._stack([body[i * P + pos]
+                                  for i in range(cfg.n_periods)])
+                      for pos in range(P)],
+        }
+        return params, cfg.replace(tie_embeddings=False)
+
+    def smashed_spec(batch_size, seq):
+        return torch.empty((batch_size, seq, cfg.d_model),
+                           dtype=cm.cdtype(cfg), device="meta")
+
+    return SplitModel("lm", cfg, v, len(cfg.layer_specs()) - 1, init_device,
+                      init_server, device_apply, device_apply_clients,
+                      server_loss, export, smashed_spec)
+
+
 def make_split_model(cfg_or_name, v: int, **kw) -> SplitModel:
     if cfg_or_name == "lenet" or cfg_or_name is None:
         return make_lenet_split(v, **kw)
@@ -153,5 +274,4 @@ def make_split_model(cfg_or_name, v: int, **kw) -> SplitModel:
     if cfg.encdec:
         raise NotImplementedError(
             f"{cfg.name}: the enc-dec split comes with ROADMAP slice 6")
-    raise NotImplementedError(
-        f"{cfg.name}: the LM split comes with ROADMAP slice 4")
+    return make_lm_split(cfg, v)

@@ -14,6 +14,9 @@ batches are bit-identical to it.
 
 ``fleet_plan`` builds an experiment fleet's padded (E, R, M, L, K, B)
 tables, eq.-8 weights and masks for ``CPSL.run_fleet``.
+
+``LMClusterData`` is the synthetic-LM counterpart of ``CPSLDataset``:
+(K, B, S) int32 token and label batches from a ``MarkovLM``.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ from repro_torch import resolve_device, streams
 from repro_torch.streams import batch_seed
 
 __all__ = ["shard_sizes", "round_index_table", "batch_seed",
-           "CPSLDataset", "DeviceResidentDataset", "FleetPlan", "fleet_plan"]
+           "CPSLDataset", "DeviceResidentDataset", "FleetPlan", "fleet_plan",
+           "LMClusterData", "host_slice"]
 
 
 def shard_sizes(device_indices: List[np.ndarray],
@@ -226,3 +230,41 @@ def fleet_plan(shards: List[List[np.ndarray]], batch: int,
                      None if homogeneous else kmask,
                      [list(map(list, lay)) for lay in layouts],
                      [int(s) for s in seeds])
+
+
+class LMClusterData:
+    """Synthetic-LM equivalent: each simulated client has its own Markov
+    seed (non-IID across clients)."""
+
+    def __init__(self, lm, n_devices: int, batch: int, seq: int,
+                 seed: int = 0):
+        self.lm = lm
+        self.B, self.S = batch, seq
+        self.rngs = [streams.lm_device_rng(seed, d)
+                     for d in range(n_devices)]
+
+    def cluster_batch(self, devices: Sequence[int],
+                      seed: Optional[int] = None):
+        """``seed`` (as in ``CPSLDataset``) makes the draw a pure function
+        of (seed, slot, device), as restartable trainers need. The slot
+        index is mixed in so a device repeated in the list gets fresh
+        samples rather than a bit-identical, double-weighted row."""
+        if seed is not None:
+            parts = [self.lm.sample(self.B, self.S,
+                                    streams.lm_batch_rng(seed, i, d))
+                     for i, d in enumerate(devices)]
+        else:
+            parts = [self.lm.sample(self.B, self.S, self.rngs[d])
+                     for d in devices]
+        return {k: np.stack([p[k] for p in parts]) for k in parts[0]}
+
+
+def host_slice(batch: Dict[str, np.ndarray], host_id: int, n_hosts: int
+               ) -> Dict[str, np.ndarray]:
+    """Shard the client axis across hosts: host ``host_id`` of
+    ``n_hosts`` keeps its K / n_hosts rows."""
+    def sl(t):
+        per = t.shape[0] // n_hosts
+        return t[host_id * per:(host_id + 1) * per]
+
+    return {k: sl(v) for k, v in batch.items()}

@@ -7,6 +7,9 @@ studies is preserved (same dims, counts, and non-IID protocol).
 
 ``non_iid_split`` implements the paper's protocol: each device holds
 ``samples_per_device`` samples drawn from 3 random classes (§VIII-A).
+
+``MarkovLM`` makes LM token batches from an order-1 Markov chain, so a
+split LM's loss can fall.
 """
 from __future__ import annotations
 
@@ -71,3 +74,30 @@ def non_iid_split(labels: np.ndarray, n_devices: int = 30,
         rng.shuffle(idx)
         out.append(idx.astype(np.int64))
     return out
+
+
+# --------------------------------------------------------------------------
+# synthetic LM tokens (Markov-ish so loss can decrease)
+# --------------------------------------------------------------------------
+
+class MarkovLM:
+    """Order-1 Markov chain over a small effective vocab embedded in the
+    model's (possibly huge) vocab; yields (tokens, labels) batches."""
+
+    def __init__(self, vocab_size: int, eff_vocab: int = 256, seed: int = 0):
+        rng = streams.data_rng(seed)
+        self.eff = min(eff_vocab, vocab_size)
+        self.vocab_size = vocab_size
+        logits = rng.normal(0, 1.5, (self.eff, self.eff))
+        p = np.exp(logits - logits.max(1, keepdims=True))
+        self.P = p / p.sum(1, keepdims=True)
+        self.cum = np.cumsum(self.P, axis=1)
+
+    def sample(self, batch: int, seq: int, rng: np.random.Generator):
+        toks = np.empty((batch, seq + 1), np.int32)
+        toks[:, 0] = rng.integers(0, self.eff, batch)
+        u = rng.random((batch, seq))
+        for t in range(seq):
+            toks[:, t + 1] = (u[:, t, None]
+                              < self.cum[toks[:, t]]).argmax(1)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

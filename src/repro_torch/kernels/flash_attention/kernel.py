@@ -8,6 +8,11 @@ then, it computes the plain version ``ref.attention_ref``.
 ``launches`` counts the kernel's launches in this process; a caller that
 wants to show a run went through the kernel sets it to 0 before the run and
 reads it after.
+
+The kernel's output has no gradient. Training reaches it only through
+``ops.flash_attention``'s ``autograd.Function``, so the wrapper refuses an
+input that requires grad while grad mode is on: autograd would otherwise
+see a constant, and the q/k/v projections would get no gradient.
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, no_grad_inputs
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -59,9 +64,11 @@ def flash_attention_flat(q, k, v, *, causal: bool = True, window: int = 0,
                          kv_repeat: int = 1) -> torch.Tensor:
     """q: (BHq, Sq, D); k, v: (BHkv, Skv, D) with BHq == BHkv * kv_repeat
     (GQA: query head h reads kv head h // kv_repeat). Returns (BHq, Sq, D)
-    in q's dtype."""
+    in q's dtype. Raises for an input that requires grad in grad mode
+    (``no_grad_inputs``)."""
     global launches
     _check(q, k, v, kv_repeat)
+    no_grad_inputs("flash_attention_flat", q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, q_offset=q_offset,

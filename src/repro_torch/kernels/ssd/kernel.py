@@ -17,6 +17,10 @@ raises. For a CPU tensor, and only then, it computes the plain version
 kernel in float32); a caller that wants to show a run went through the
 kernel sets it to 0 before the run and reads it after.
 
+The kernel's outputs have no gradient: in grad mode the wrappers refuse an
+input that requires grad (``no_grad_inputs``), and training reaches the
+kernel only through ``ops.ssd``'s ``autograd.Function``.
+
 The bf16 path keeps per-chunk scratch (the chunk states and each chunk's
 incoming state) for one window of chunks at a time; ``SCRATCH_BYTES``
 bounds it (or one chunk's worth, where that is more), whatever the number
@@ -29,7 +33,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, no_grad_inputs
 from repro_torch.kernels.ssd.ref import ssd_grouped_ref
 
 STATE_DIMS = (16, 32, 64, 128)     # the N and P the kernel is built for
@@ -158,8 +162,10 @@ def ssd_grouped(x, dt, A, Bm, Cm, *, chunk: int = 128, out=None):
     A (H,) f32, Bm and Cm (B, S, G, N) per group, head h reading group
     h // (H / G). Returns (y (B, S, H, P) in x's dtype, hT (B, H, N, P)
     f32), from a zero state; y is written into ``out`` when given (any
-    strides, the last dim contiguous)."""
+    strides, the last dim contiguous). Raises for an input that requires
+    grad in grad mode."""
     _check_grouped(x, dt, A, Bm, Cm)
+    no_grad_inputs("ssd_grouped", x, dt, A, Bm, Cm)
     if out is not None and (out.shape != x.shape or out.dtype != x.dtype
                             or out.device != x.device):
         raise ValueError(f"out must match x: {tuple(out.shape)} "

@@ -2,6 +2,7 @@
 the encoder-decoder family comes with the whisper slice).
 
     init(gen, cfg)                 -> params on gen's device
+    loss_fn(params, batch, cfg)    -> scalar
     forward(params, batch, cfg)    -> (logits, aux)
     prefill(params, batch, cfg)    -> (last logits, cache)
     decode_step(params, cache, tokens, pos, cfg) -> (logits, cache)
@@ -10,6 +11,10 @@ from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
+
+
+def is_encdec(cfg: ModelConfig) -> bool:
+    return cfg.encdec
 
 
 def _decoder_only(cfg: ModelConfig):
@@ -22,6 +27,11 @@ def _decoder_only(cfg: ModelConfig):
 def init(gen, cfg: ModelConfig):
     _decoder_only(cfg)
     return tfm.init(gen, cfg)
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig):
+    _decoder_only(cfg)
+    return tfm.loss_fn(params, batch, cfg)
 
 
 def forward(params, batch: dict, cfg: ModelConfig):

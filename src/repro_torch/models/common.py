@@ -4,7 +4,9 @@
 Functional like the reference: ``*_init(gen, ...) -> params`` (nested dicts
 of f32 tensors on the generator's device) and ``*_apply(params, x, ...) ->
 y``. Compute runs in the config's compute dtype (bf16 by default); softmax
-statistics in f32. MLA, MoE and the losses come with later slices.
+statistics in f32. The losses (``lm_head_loss``, the fused chunked
+cross-entropy and ``cross_entropy``) train the split LMs; MLA and MoE come
+with a later slice.
 """
 from __future__ import annotations
 
@@ -158,20 +160,30 @@ def _largest_divisor(n: int, target: int) -> int:
     return c
 
 
-def chunked_attention(q, k, v, causal=True, window=0, softcap=0.0,
-                      q_offset=0, q_chunk=512, kv_chunk=1024
-                      ) -> torch.Tensor:
-    """Online-softmax attention in plain torch, over (q_chunk, kv_chunk)
-    tiles: the forward of the reference's ``chunked_attention``. The
-    autograd.Function with its flash backward comes with the training
-    slice."""
+def _tile_visible(q_lo: int, q_hi: int, k_lo: int, k_hi: int, *,
+                  causal: bool, window: int) -> bool:
+    """Whether any (q, k) pair of the tile [q_lo, q_hi] x [k_lo, k_hi]
+    (absolute positions, inclusive) passes the causal and window masks.
+    A tile that fails contributes exactly nothing (its probabilities are
+    exp(-1e30 - lse) = 0, and a fully masked leading tile's sums are wiped
+    by the next tile's rescale alpha = 0), so skipping it changes no
+    result."""
+    if causal and q_hi < k_lo:
+        return False
+    return window <= 0 or q_lo - k_hi < window
+
+
+def _flash_fwd_impl(q, k, v, causal, window, softcap, q_offset, q_chunk,
+                    kv_chunk):
+    """Online-softmax forward over (q_chunk, kv_chunk) tiles. Returns
+    (out, lse) with lse: (B, G, R, Sq) f32."""
     B, Sq, G, R, D = q.shape
     Skv = k.shape[1]
     q_chunk = _largest_divisor(Sq, q_chunk)
     kv_chunk = _largest_divisor(Skv, kv_chunk)
     scale = 1.0 / math.sqrt(D)
     dev = q.device
-    outs = []
+    outs, lses = [], []
     for q0 in range(0, Sq, q_chunk):
         qc = q[:, q0:q0 + q_chunk].float()
         qpos = q_offset + q0 + torch.arange(q_chunk, device=dev)
@@ -181,6 +193,10 @@ def chunked_attention(q, k, v, causal=True, window=0, softcap=0.0,
         acc = torch.zeros((B, q_chunk, G, R, D), dtype=torch.float32,
                           device=dev)
         for k0 in range(0, Skv, kv_chunk):
+            if not _tile_visible(q_offset + q0, q_offset + q0 + q_chunk - 1,
+                                 k0, k0 + kv_chunk - 1, causal=causal,
+                                 window=window):
+                continue
             kc = k[:, k0:k0 + kv_chunk].float()
             vc = v[:, k0:k0 + kv_chunk].float()
             s = torch.einsum("bqgrd,bkgd->bgrqk", qc, kc) * scale
@@ -195,8 +211,88 @@ def chunked_attention(q, k, v, causal=True, window=0, softcap=0.0,
             acc = acc * torch.movedim(alpha, 3, 1)[..., None] + pv
             m = m_new
         l = torch.clamp(l, min=1e-30)
+        lses.append(m + torch.log(l))
         outs.append((acc / torch.movedim(l, 3, 1)[..., None]).to(q.dtype))
-    return torch.cat(outs, dim=1)
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=3)
+
+
+def _flash_bwd(q, k, v, out, lse, g, causal, window, softcap, q_offset,
+               q_chunk, kv_chunk):
+    """The flash-attention gradient: each tile's exact softmax is
+    recomputed from (q, k, lse), so memory stays O(q_chunk * kv_chunk).
+    Returns (dq, dk, dv) in the input dtypes; dk and dv are summed over
+    each kv head's R query heads."""
+    B, Sq, G, R, D = q.shape
+    Skv = k.shape[1]
+    q_chunk = _largest_divisor(Sq, q_chunk)
+    kv_chunk = _largest_divisor(Skv, kv_chunk)
+    scale = 1.0 / math.sqrt(D)
+    f32, dev = torch.float32, q.device
+    # delta_i = sum_d dO_i * O_i   (B,G,R,Sq)
+    delta = torch.einsum("bqgrd,bqgrd->bgrq", g.float(), out.float())
+    dq = torch.empty((B, Sq, G, R, D), dtype=f32, device=dev)
+    dk = torch.zeros((B, Skv, G, D), dtype=f32, device=dev)
+    dv = torch.zeros((B, Skv, G, D), dtype=f32, device=dev)
+    for q0 in range(0, Sq, q_chunk):
+        qc = q[:, q0:q0 + q_chunk].float()
+        gc = g[:, q0:q0 + q_chunk].float()
+        lse_c = lse[..., q0:q0 + q_chunk, None]
+        delta_c = delta[..., q0:q0 + q_chunk, None]
+        qpos = q_offset + q0 + torch.arange(q_chunk, device=dev)
+        dq_c = torch.zeros((B, q_chunk, G, R, D), dtype=f32, device=dev)
+        for k0 in range(0, Skv, kv_chunk):
+            if not _tile_visible(q_offset + q0, q_offset + q0 + q_chunk - 1,
+                                 k0, k0 + kv_chunk - 1, causal=causal,
+                                 window=window):
+                continue
+            kc = k[:, k0:k0 + kv_chunk].float()
+            vc = v[:, k0:k0 + kv_chunk].float()
+            s_pre = torch.einsum("bqgrd,bkgd->bgrqk", qc, kc) * scale
+            s = _soft_cap(s_pre, softcap)
+            kpos = k0 + torch.arange(kv_chunk, device=dev)
+            bias = _mask_bias(qpos, kpos, causal=causal, window=window)
+            p = torch.exp(s + bias - lse_c)           # exact softmax tile
+            dp = torch.einsum("bqgrd,bkgd->bgrqk", gc, vc)
+            ds = p * (dp - delta_c)
+            if softcap > 0:
+                ds = ds * (1.0 - torch.square(torch.tanh(s_pre / softcap)))
+            dq_c = dq_c + torch.einsum("bgrqk,bkgd->bqgrd", ds, kc) * scale
+            dk[:, k0:k0 + kv_chunk] += torch.einsum(
+                "bgrqk,bqgrd->bkgd", ds, qc) * scale
+            dv[:, k0:k0 + kv_chunk] += torch.einsum(
+                "bgrqk,bqgrd->bkgd", p, gc)
+        dq[:, q0:q0 + q_chunk] = dq_c
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset, q_chunk,
+                kv_chunk):
+        out, lse = _flash_fwd_impl(q, k, v, causal, window, softcap,
+                                   q_offset, q_chunk, kv_chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, softcap, q_offset, q_chunk, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, g, *ctx.args)
+        return (dq, dk, dv) + (None,) * 6
+
+
+def chunked_attention(q, k, v, causal=True, window=0, softcap=0.0,
+                      q_offset=0, q_chunk=512, kv_chunk=1024
+                      ) -> torch.Tensor:
+    """Flash attention in plain torch with a flash backward (the
+    reference's ``custom_vjp``): the forward keeps only (out, lse), and the
+    backward recomputes each (q_chunk, kv_chunk) probability tile, so no
+    O(Sq * Skv) residual is stashed. Tiles that the masks hide entirely
+    are skipped. Also the backward of the flash kernel's
+    ``autograd.Function``."""
+    return _ChunkedAttention.apply(q, k, v, causal, window, softcap,
+                                   q_offset, q_chunk, kv_chunk)
 
 
 def grouped_attention(q, k, v, cfg: ModelConfig, *, causal: bool,
@@ -350,3 +446,112 @@ def logits_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.final_softcap > 0:
         logits = _soft_cap(logits, cfg.final_softcap)
     return logits
+
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
+
+def lm_head_loss(head_w: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
+                 cfg: ModelConfig, mask: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Cross-entropy from final hiddens. head_w: (D, V). With
+    ``cfg.loss_chunk`` > 0 dividing S (and below it) the loss runs over
+    token chunks along the sequence with a hand-written backward
+    (``_FusedCE``), so peak memory is one chunk's logits, never the full
+    (tokens, vocab) f32 logits."""
+    D = x.shape[-1]
+    B, S = tuple(labels.shape[:2]) if labels.dim() == 2 else \
+        (1, labels.shape[0])
+    x = x.reshape(B, S, D)
+    labels = labels.reshape(B, S).long()
+    mask = mask.reshape(B, S) if mask is not None else None
+    chunk = cfg.loss_chunk
+    if chunk <= 0 or S % max(chunk, 1) or S <= chunk:
+        logits = (x @ head_w.to(x.dtype)).float()
+        if cfg.final_softcap > 0:
+            logits = _soft_cap(logits, cfg.final_softcap)
+        return cross_entropy(logits, labels, mask)
+    mask = mask if mask is not None else torch.ones(
+        (B, S), dtype=torch.float32, device=x.device)
+    return _FusedCE.apply(x, head_w, labels, mask, S // chunk,
+                          float(cfg.final_softcap))
+
+
+def _ce_chunk_stats(xc, head_w, lc, softcap: float):
+    """One chunk's (logits, raw logits, lse, label logit), f32."""
+    logits = (xc @ head_w.to(xc.dtype)).float()
+    raw = logits
+    if softcap > 0:
+        logits = _soft_cap(logits, softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lc[..., None])[..., 0]
+    return logits, raw, lse, ll
+
+
+class _FusedCE(torch.autograd.Function):
+    """Chunked cross-entropy with a hand-written backward: each chunk's
+    softmax is recomputed, dlogits = p - onehot, and dW accumulates in one
+    f32 (D, V) buffer; autograd through the chunk loop would keep every
+    chunk's logits alive."""
+
+    @staticmethod
+    def forward(ctx, x, head_w, labels, mask, n: int, softcap: float):
+        B, S, D = x.shape
+        chunk = S // n
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(n):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            mc = mask[:, sl].float()
+            _, _, lse, ll = _ce_chunk_stats(x[:, sl], head_w, labels[:, sl],
+                                            softcap)
+            tot = tot + ((lse - ll) * mc).sum()
+            cnt = cnt + mc.sum()
+        cnt = torch.clamp(cnt, min=1.0)
+        ctx.save_for_backward(x, head_w, labels, mask, cnt)
+        ctx.n, ctx.softcap = n, softcap
+        return tot / cnt
+
+    @staticmethod
+    def backward(ctx, g):
+        x, head_w, labels, mask, cnt = ctx.saved_tensors
+        n, softcap = ctx.n, ctx.softcap
+        B, S, D = x.shape
+        chunk = S // n
+        scale = g / cnt
+        w32 = head_w.float()
+        dW = torch.zeros(tuple(head_w.shape), dtype=torch.float32,
+                         device=x.device)
+        dx = torch.empty_like(x)
+        for i in range(n):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            xc, lc = x[:, sl], labels[:, sl]
+            logits, raw, lse, _ = _ce_chunk_stats(xc, head_w, lc, softcap)
+            # in place: at a 256k vocab every (B, chunk, V) f32 temporary
+            # is GBs
+            dlogits = torch.exp(logits - lse[..., None])
+            del logits
+            dlogits.scatter_add_(-1, lc[..., None],
+                                 torch.full_like(lse[..., None], -1.0))
+            dlogits.mul_((mask[:, sl].float() * scale)[..., None])
+            if softcap > 0:
+                # 1 - tanh(raw / softcap)^2
+                dlogits.mul_(torch.tanh(raw / softcap).square_().neg_()
+                             .add_(1.0))
+            del raw
+            dx[:, sl] = (dlogits @ w32.T).to(x.dtype)
+            dW += torch.einsum("bcd,bcv->dv", xc.float(), dlogits)
+        return dx, dW.to(head_w.dtype), None, None, None, None
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy; logits (..., V) f32, labels (...) int."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

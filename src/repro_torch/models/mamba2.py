@@ -6,7 +6,8 @@ SSD semantics (Dao & Gu 2024): per head h with state size N, head dim P:
 Three implementations:
   - ``scan``:     exact sequential recurrence (oracle, O(S) steps)
   - ``chunked``:  block decomposition (intra-chunk quadratic + inter-chunk
-                  state passing), forward only, a Python loop over chunks
+                  state passing), a Python loop over chunks, each chunk
+                  checkpointed under autograd
   - ``pallas``:   the hand-written CUDA kernel (``kernels/ssd``); the name
                   is the reference's, so one config drives both packages
 """
@@ -17,6 +18,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, SSMCfg
 from repro_torch.models.common import (Params, _normal, apply_norm, dense,
@@ -42,9 +44,39 @@ def ssd_scan(x, dt, A, Bm, Cm, h0=None):
     return torch.stack(ys, dim=1), h
 
 
+def _ssd_chunk(h, xc, dtc, Bc, Cc, A, mask, out_dtype):
+    """One chunk of the block decomposition from the carried state h:
+    returns (y (B,Q,H,P) in ``out_dtype``, the state after the chunk)."""
+    f32 = torch.float32
+    xc, dtc, Bc, Cc = xc.to(f32), dtc.to(f32), Bc.to(f32), Cc.to(f32)
+    dA = dtc * A                            # (B,Q,H) <= 0
+    cum = torch.cumsum(dA, dim=1)           # inclusive
+    # intra-chunk quadratic term
+    scores = torch.einsum("bqhd,bkhd->bhqk", Cc, Bc)
+    ci = cum.movedim(2, 1)                  # (B,H,Q)
+    # masked before the exp: above the diagonal the difference may exceed
+    # exp's range, and exp(inf)'s gradient times the select's zero is NaN
+    decay = torch.exp(torch.where(
+        mask, ci[..., :, None] - ci[..., None, :],
+        torch.full((), float("-inf"), dtype=f32, device=xc.device)))
+    M = scores * decay * dtc.movedim(2, 1)[..., None, :]
+    y = torch.einsum("bhqk,bkhp->bqhp", M, xc)
+    # carried-state contribution
+    y = y + torch.einsum("bqhd,bhdp,bqh->bqhp", Cc, h, torch.exp(cum))
+    # state update
+    sdecay = torch.exp(cum[:, -1:, :] - cum) * dtc
+    Sc = torch.einsum("bqhd,bqh,bqhp->bhdp", Bc, sdecay, xc)
+    h = torch.exp(cum[:, -1, :])[..., None, None] * h + Sc
+    return y.to(out_dtype), h
+
+
 def ssd_chunked(x, dt, A, Bm, Cm, h0=None, chunk: int = 256):
     """Block-decomposed SSD, one chunk at a time (the reference's
-    chunk rule: ``chunk`` halved until it divides S)."""
+    chunk rule: ``chunk`` halved until it divides S). Under autograd each
+    chunk body is checkpointed, as the reference's ``jax.checkpoint`` of
+    its scan body: the backward recomputes a chunk's (B,H,Q,Q) decay and
+    score tiles from its inputs and carried state instead of keeping them
+    for all S / Q chunks."""
     B_, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = chunk
@@ -55,30 +87,17 @@ def ssd_chunked(x, dt, A, Bm, Cm, h0=None, chunk: int = 256):
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
     h = h0 if h0 is not None else torch.zeros((B_, H, N, P), dtype=f32,
                                               device=x.device)
+    remat = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, h0))
     ys = []
     for s0 in range(0, S, Q):
-        xc = x[:, s0:s0 + Q].to(f32)            # (B,Q,H,P)
-        dtc = dt[:, s0:s0 + Q].to(f32)          # (B,Q,H)
-        Bc = Bm[:, s0:s0 + Q].to(f32)           # (B,Q,H,N)
-        Cc = Cm[:, s0:s0 + Q].to(f32)
-        dA = dtc * A                            # (B,Q,H) <= 0
-        cum = torch.cumsum(dA, dim=1)           # inclusive
-        # intra-chunk quadratic term
-        scores = torch.einsum("bqhd,bkhd->bhqk", Cc, Bc)
-        ci = cum.movedim(2, 1)                  # (B,H,Q)
-        decay = torch.exp(ci[..., :, None] - ci[..., None, :])
-        # a select, not a 0/1 product: above the diagonal exp() may be inf
-        decay = torch.where(mask, decay, torch.zeros((), dtype=f32,
-                                                     device=x.device))
-        M = scores * decay * dtc.movedim(2, 1)[..., None, :]
-        y = torch.einsum("bhqk,bkhp->bqhp", M, xc)
-        # carried-state contribution
-        y = y + torch.einsum("bqhd,bhdp,bqh->bqhp", Cc, h, torch.exp(cum))
-        # state update
-        sdecay = torch.exp(cum[:, -1:, :] - cum) * dtc
-        Sc = torch.einsum("bqhd,bqh,bqhp->bhdp", Bc, sdecay, xc)
-        h = torch.exp(cum[:, -1, :])[..., None, None] * h + Sc
-        ys.append(y.to(x.dtype))
+        args = (h, x[:, s0:s0 + Q], dt[:, s0:s0 + Q], Bm[:, s0:s0 + Q],
+                Cm[:, s0:s0 + Q], A, mask, x.dtype)
+        if remat:
+            y, h = checkpoint(_ssd_chunk, *args, use_reentrant=False)
+        else:
+            y, h = _ssd_chunk(*args)
+        ys.append(y)
     return torch.cat(ys, dim=1), h
 
 

@@ -3,18 +3,21 @@ the MoE and MLA branches come with a later slice).
 
 The stack = unrolled ``prologue`` blocks + ``n_periods`` repetitions of
 ``pattern``, with the pattern's params stacked on a leading ``n_periods``
-axis as in the reference; the periods run as a Python loop. Caches follow
-the same tree. Prefill and decode write each layer's cache in place (the
-reference returns an updated copy): an attention layer the new k/v, a
-Mamba layer its conv window and SSM state, so a step moves no cache bytes
-and a layer's view of the stacked cache stays current.
+axis as in the reference; the periods run as a Python loop, under
+``torch.utils.checkpoint`` when ``cfg.remat`` (training: ``loss_fn``).
+Caches follow the same tree. Prefill and decode write each layer's cache
+in place (the reference returns an updated copy): an attention layer the
+new k/v, a Mamba layer its conv window and SSM state, so a step moves no
+cache bytes and a layer's view of the stacked cache stays current.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import common as cm
 from repro_torch.models import mamba2 as mb
@@ -34,11 +37,11 @@ def _unported(spec: LayerSpec, cfg: ModelConfig):
         raise ValueError(spec.mixer)
 
 
-def _index(tree, i: int):
+def _index(stacked, i: int):
     """The i-th slice of every leaf of a stacked params/cache tree."""
-    if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
+    if isinstance(stacked, dict):
+        return {k: _index(v, i) for k, v in stacked.items()}
+    return stacked[i]
 
 
 # --------------------------------------------------------------------------
@@ -201,17 +204,50 @@ def _stack(trees):
     return torch.stack(trees)
 
 
+def _remat(fn):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant) when grad
+    mode is on: its activations are recomputed in backward, not kept."""
+    def run(*args):
+        if torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+    return run
+
+
 def _stack_forward(params, x, cfg: ModelConfig, positions):
-    """Run prologue + the periods of the pattern. Returns (x, aux)."""
+    """Run prologue + the periods of the pattern. Returns (x, aux). With
+    ``cfg.remat`` each prologue block and each period is checkpointed (the
+    reference's ``jax.checkpoint``); with ``remat_group`` g > 1 dividing
+    the periods, groups of g periods are checkpointed around their
+    checkpointed periods (two-level remat)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, spec in enumerate(cfg.prologue):
-        x, a = block_apply(params["prologue"][i], x, cfg, spec, positions)
+        blk = _remat(block_apply) if cfg.remat else block_apply
+        x, a = blk(params["prologue"][i], x, cfg, spec, positions)
         aux = aux + a
-    for n in range(cfg.n_periods):
+    if not cfg.n_periods:
+        return x, aux
+    periods = list(zip(*[tree.unbind(t) for t in params["stack"]]))
+
+    def body(x, aux, period):
         for pos, spec in enumerate(cfg.pattern):
-            x, a = block_apply(_index(params["stack"][pos], n), x, cfg, spec,
-                               positions)
+            x, a = block_apply(period[pos], x, cfg, spec, positions)
             aux = aux + a
+        return x, aux
+
+    g = cfg.remat_group
+    if cfg.remat and g > 1 and cfg.n_periods % g == 0:
+        def group_body(x, aux, group):
+            for period in group:
+                x, aux = _remat(body)(x, aux, period)
+            return x, aux
+
+        for j in range(0, cfg.n_periods, g):
+            x, aux = _remat(group_body)(x, aux, periods[j:j + g])
+    else:
+        step = _remat(body) if cfg.remat else body
+        for period in periods:
+            x, aux = step(x, aux, period)
     return x, aux
 
 
@@ -228,6 +264,29 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     x, aux = _stack_forward(params, x, cfg, positions)
     x = cm.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
     return cm.logits_apply(params["embed"], x, cfg), aux
+
+
+def final_hidden(params: Params, tokens: torch.Tensor, cfg: ModelConfig):
+    """Backbone up to (and incl.) the final norm. Returns (x, aux)."""
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = cm.embed_apply(params["embed"], tokens, cfg)
+    x, aux = _stack_forward(params, x, cfg, positions)
+    x = cm.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    return x, aux
+
+
+def head_matrix(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    return (params["embed"]["tok"].T if cfg.tie_embeddings
+            else params["embed"]["head"])
+
+
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Mean token cross-entropy of ``batch["labels"]`` (masked by
+    ``batch["mask"]`` when given) plus the aux loss."""
+    x, aux = final_hidden(params, batch["tokens"], cfg)
+    loss = cm.lm_head_loss(head_matrix(params, cfg), x, batch["labels"],
+                           cfg, batch.get("mask"))
+    return loss + aux
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,

@@ -149,6 +149,27 @@ def make(name: str, lr: Schedule, **kw) -> Optimizer:
     if name == "adamw":
         return adamw(lr, weight_decay=kw.get("weight_decay", 0.0))
     if name == "adamw_mixed":
-        raise NotImplementedError(
-            "adamw_mixed comes with the split-LM slice (ROADMAP slice 4)")
+        return adamw_mixed(lr, weight_decay=kw.get("weight_decay", 0.0))
     raise ValueError(name)
+
+
+def adamw_mixed(lr: Schedule, b1: float = 0.9, b2: float = 0.999,
+                eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
+    """Mixed-precision AdamW: the model params keep their (e.g. bf16)
+    dtype; the state holds the f32 master copy and the moments
+    (``{"master", "m", "v"}``, the reference's structure). The master
+    copy takes ``adamw``'s step; the params are its cast."""
+    inner = adamw(lr, b1, b2, eps, weight_decay)
+
+    def init(params):
+        master = tree.map(lambda p: p.float().clone(), params)
+        return {"master": master, **inner.init(master)}
+
+    def step_fn(grads, state, params, step=0, lr_scale=None):
+        master, moments = inner.step(
+            grads, {"m": state["m"], "v": state["v"]}, state["master"],
+            step, lr_scale=lr_scale)
+        new_p = tree.map(lambda mp, p: mp.to(p.dtype), master, params)
+        return new_p, {"master": master, **moments}
+
+    return Optimizer(init, step_fn, "adamw_mixed")

@@ -10,9 +10,16 @@ Two kinds:
 - The NumPy stream registry the CPSL control plane draws from, copied
   from ``repro.streams`` with its positions and formulas unchanged, so the
   port's planner decisions, index tables and batches are bit-identical to
-  the reference's. ``registry_overlaps`` proves the tuple pool disjoint;
-  the port's own streams (``straggler``) are registered beside copies of
-  every reference pattern, so they cannot alias one of them.
+  the reference's. ``registry_overlaps`` checks the tuple pool for
+  patterns that can seed one stream. NumPy's ``SeedSequence`` pads its
+  entropy with zeros to four words, so ``(a, b, c)`` and ``(a, b, c, 0)``
+  draw the same numbers: patterns are compared padded with a literal 0 to
+  four positions. The port's own streams (``straggler``) are registered
+  beside copies of every reference pattern and alias none of them. The
+  reference's fleet patterns can alias its ``bucket_chain`` and
+  ``lm_batch`` streams at episodes 6151 and 7433; those pairs are
+  ``INHERITED_OVERLAPS``, kept because the batches' bit-equality with the
+  reference needs its formulas unchanged.
 """
 from __future__ import annotations
 
@@ -79,12 +86,23 @@ def _register(spec: StreamSpec) -> StreamSpec:
     return spec
 
 
-def registry_overlaps(registry=None):
-    """Prove the tuple pool disjoint. Returns a list of problems (empty ==
-    proven): pairwise same-length tuple patterns whose every position can
-    collide at once, and banned length-1 tuple patterns (SeedSequence
-    hashes ``(s,)`` and ``s`` identically)."""
+#: SeedSequence's entropy pool: shorter keys are padded with zeros to it
+POOL_WORDS = 4
+
+
+def _padded(key, n: int) -> tuple:
+    return tuple(key) + (0,) * (n - len(key))
+
+
+def registry_overlaps(registry=None, allowed=None):
+    """Check the tuple pool. Returns a list of problems (empty == proven
+    disjoint): pairs of tuple patterns whose every position can collide
+    at once after both are padded with 0 to ``POOL_WORDS`` positions (or
+    to the longer one's length), and banned length-1 tuple patterns
+    (SeedSequence hashes ``(s,)`` and ``s`` identically). Pairs named in
+    ``allowed`` (default ``INHERITED_OVERLAPS``) are not reported."""
     registry = REGISTRY if registry is None else registry
+    allowed = INHERITED_OVERLAPS if allowed is None else allowed
     problems = []
     tuples = [s for s in registry.values() if s.pool == "tuple"]
     for s in tuples:
@@ -94,10 +112,11 @@ def registry_overlaps(registry=None):
                 "(SeedSequence hashes (s,) and s identically)")
     for i, a in enumerate(tuples):
         for b in tuples[i + 1:]:
-            if len(a.key) != len(b.key):
+            if frozenset((a.name, b.name)) in allowed:
                 continue
+            n = max(POOL_WORDS, len(a.key), len(b.key))
             if all(_positions_intersect(x, y)
-                   for x, y in zip(a.key, b.key)):
+                   for x, y in zip(_padded(a.key, n), _padded(b.key, n))):
                 problems.append(
                     f"{a.name} and {b.name}: patterns {a.key} / {b.key} "
                     "can collide")
@@ -114,8 +133,12 @@ CHAIN_MAX = 4096
 FLEET_DEPART_TAG, FLEET_ARRIVE_TAG = 11, 13
 FLEET_GIBBS_TAG, FLEET_SAA_TAG = 17, 19
 FLEET_RESERVE_TAG, BUCKET_TAG, LM_TAG = 9967, 6151, 7433
-#: the port's straggler keep tables, (seed, round, STRAGGLER_TAG)
+#: the port's straggler keep tables, (seed, round, STRAGGLER_TAG); rounds
+#: are bounded below the smallest second-position tag, so that
+#: (seed, round, STRAGGLER_TAG, 0) stays disjoint from ``bucket_chain``
+#: and ``lm_batch`` (and from the reserve means)
 STRAGGLER_TAG = 8467
+ROUND_MAX = min(BUCKET_TAG, LM_TAG, FLEET_RESERVE_TAG)
 
 for _spec in (
         StreamSpec("chain", "tuple", (Sym("seed"), Sym("chain", 1, CHAIN_MAX)),
@@ -142,7 +165,7 @@ for _spec in (
                    (Sym("seed"), LM_TAG, Sym("slot"), Sym("device")),
                    "Seeded LM pipeline batch draws per (slot, device)."),
         StreamSpec("straggler", "tuple",
-                   (Sym("seed"), Sym("round"), STRAGGLER_TAG),
+                   (Sym("seed"), Sym("round", 0, ROUND_MAX), STRAGGLER_TAG),
                    "The port's per-round (M, K) straggler keep tables. The "
                    "reference draws its keep mask with jax.random.bernoulli "
                    "on the state's key, which torch cannot reproduce; the "
@@ -169,7 +192,26 @@ def bucket_chain_rng(seed: int, bucket: int, chain: int) \
 
 
 def straggler_rng(seed: int, rnd: int) -> np.random.Generator:
+    if not 0 <= rnd < ROUND_MAX:
+        raise ValueError(f"straggler round {rnd} outside [0, {ROUND_MAX})")
     return np.random.default_rng((int(seed), int(rnd), STRAGGLER_TAG))
+
+
+def lm_batch_rng(seed: int, slot: int, device: int) -> np.random.Generator:
+    """Seeded ``LMClusterData`` draws, per (slot, device)."""
+    return np.random.default_rng((int(seed), LM_TAG, int(slot), int(device)))
+
+
+#: Reference pattern pairs that can seed one stream once padded to four
+#: words: a fleet pattern (seed, episode, tag, 0) meets
+#: (seed, BUCKET_TAG, bucket, chain) at episode 6151 and
+#: (seed, LM_TAG, slot, device) at episode 7433. The formulas are the
+#: reference's and stay as they are (batch and decision bit-equality).
+INHERITED_OVERLAPS = frozenset(
+    frozenset((fleet, other))
+    for fleet in ("fleet_departures", "fleet_arrivals", "fleet_gibbs",
+                  "fleet_saa")
+    for other in ("bucket_chain", "lm_batch"))
 
 
 # --------------------------------------------------------------------------
@@ -186,6 +228,8 @@ for _name, _doc in (
         ("layout", "random_clustering layouts: default_rng(seed)."),
         ("saa_network", "SAA cut selection's network draws: seed + 1."),
         ("trainer_round", "Trainer per-round network draw: seed*1000 + rnd."),
+        ("lm_device", "LMClusterData sequential per-device streams: "
+                      "seed + 7*d."),
         ("curve", "equal_split_curve's network draws: default_rng(seed).")):
     _register(StreamSpec(_name, "scalar", (), _doc))
 
@@ -235,6 +279,11 @@ def saa_network_rng(seed: int) -> np.random.Generator:
 
 def trainer_round_rng(seed: int, rnd: int) -> np.random.Generator:
     return np.random.default_rng(seed * 1000 + rnd)
+
+
+def lm_device_rng(seed: int, device: int) -> np.random.Generator:
+    """Sequential (unseeded) ``LMClusterData`` draws of one device."""
+    return np.random.default_rng(seed + 7 * device)
 
 
 def curve_rng(seed: int) -> np.random.Generator:

@@ -56,3 +56,13 @@ def unflatten_like(target, new_leaves):
     rest = list(it)
     assert not rest, f"{len(rest)} leaves left over"
     return out
+
+
+def unbind(tree) -> list:
+    """The slices of every leaf along its leading axis, as a list of trees
+    (slice i of every leaf in tree i). Each leaf is unbound once, so in
+    backward one node stacks the slices' gradients, where indexing slice by
+    slice would add one full-size zero tensor per slice."""
+    parts = [leaf.unbind(0) for leaf in leaves(tree)]
+    n = len(parts[0]) if parts else 0
+    return [unflatten_like(tree, [p[i] for p in parts]) for i in range(n)]

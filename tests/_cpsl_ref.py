@@ -1,4 +1,5 @@
-"""The reference's CPSL training modules, for the port's parity tests.
+"""The reference's CPSL training modules (and the LM modules the split-LM
+training runs), for the port's parity tests.
 
 On jax 0.9 ``repro.core.cpsl`` and ``repro.sim`` (which
 ``repro.train.trainer`` imports) do not import as they stand:
@@ -41,6 +42,12 @@ MODULES = {
     "configs": "repro.configs.base",
     "streams": "repro.streams",
     "batched": "repro.sim.batched",
+    "registry": "repro.configs.registry",
+    "transformer": "repro.models.transformer",
+    "common": "repro.models.common",
+    "mamba2": "repro.models.mamba2",
+    "fa_ops": "repro.kernels.flash_attention.ops",
+    "ssd_ops": "repro.kernels.ssd.ops",
 }
 
 _MISSING = object()

@@ -557,3 +557,114 @@ def test_fleet_replica_matches_solo_on_card(cuda):
                     err = float((a - b).abs().max()) / max(
                         1.0, float(a.abs().max()))
                     assert err <= 1e-5, (e, path, err)
+
+
+# --------------------------------------------------------------------------
+# split-LM training: the kernels under their autograd.Functions
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, BF16_TOL)])
+def test_flash_function_grads_vs_plain(cuda, dtype, tol):
+    """K1's Function (kernel forward) against ``chunked_attention``: the
+    output and dq/dk/dv (tests/test_kernels.py:72's 1e-4 in f32), GQA
+    R = 2, softcap 50, a window shorter than S, q_offset > 0."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    B, Sq, Skv, G, R, D = 2, 192, 320, 2, 2, 64
+    args = (True, 96, 50.0, Skv - Sq)
+    q = _randn(gen, B, Sq, G, R, D, dtype=dtype)
+    k, v = (_randn(gen, B, Skv, G, D, dtype=dtype) for _ in range(2))
+    g = _randn(gen, B, Sq, G, R, D, dtype=dtype)
+    outs = []
+    for fn in (fa_ops.flash_attention, cm.chunked_attention):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = fk.launches
+        out = fn(*ins, *args)
+        outs.append([out] + list(torch.autograd.grad(out, ins, g)))
+        assert (fk.launches > before) == (fn is fa_ops.flash_attention)
+    for a, b in zip(*outs):
+        a, b = a.detach().float(), b.detach().float()
+        err = float((a - b).abs().max())
+        assert err <= tol * max(1.0, float(b.abs().max())), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_function_grads_vs_plain(cuda, dtype):
+    """K2's Function (kernel forward, B and C per group) against
+    ``ssd_chunked`` on the groups broadcast to heads: y, hT and dx, ddt,
+    dA, dB, dC (tests/test_kernels.py's 2e-5 in f32; 5e-2 in bf16)."""
+    from repro_torch.models import mamba2 as mb
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    B_, S, H, G, P, N = 2, 384, 4, 2, 64, 128
+    x = _randn(gen, B_, S, H, P, dtype=dtype)
+    dt = F.softplus(_randn(gen, B_, S, H) - 1.0)
+    A = -torch.exp(0.3 * _randn(gen, H))
+    Bm, Cm = ((0.5 * _randn(gen, B_, S, G, N)).to(dtype) for _ in range(2))
+    gy = _randn(gen, B_, S, H, P, dtype=dtype)
+    gh = _randn(gen, B_, H, N, P)
+    outs = []
+    for kernel in (True, False):
+        ins = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+        before = sk.launches
+        if kernel:
+            y, hT = ssd_ops.ssd(*ins, chunk=128)
+        else:
+            y, hT = mb.ssd_chunked(ins[0], ins[1], ins[2],
+                                   mb._broadcast_groups(ins[3], H),
+                                   mb._broadcast_groups(ins[4], H),
+                                   chunk=128)
+        outs.append([y, hT] + list(torch.autograd.grad((y, hT), ins,
+                                                       (gy, gh))))
+        assert (sk.launches > before) == kernel
+    tol = 2e-5 if dtype == torch.float32 else SSD_BF16_TOL
+    for a, b in zip(*outs):
+        a, b = a.detach().float(), b.detach().float()
+        err = float((a - b).abs().max())
+        assert err <= tol * max(1.0, float(b.abs().max())), err
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-2.7b"])
+def test_split_lm_round_on_card_matches_cpu(cuda, arch):
+    """A reduced split LM in f32, one 2 x 2 CPSL round: the card (the
+    kernels, launched 2 * (K*v + layers - v) times a step with remat)
+    against the CPU (their plain versions), within 1e-4 per leaf."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.configs.base import CPSLConfig
+    from repro_torch.core.cpsl import CPSL, to_device
+    from repro_torch.core.splitting import make_split_model
+    from repro_torch.data.pipeline import LMClusterData, batch_seed
+    from repro_torch.data.synthetic import MarkovLM
+    cfg = registry.reduce_for_smoke(registry.get(arch)).replace(
+        dtype="float32", attn_impl="pallas", ssd_impl="pallas", remat=True)
+    if arch == "gemma2-2b":
+        cfg = cfg.replace(pattern=(dataclasses.replace(cfg.pattern[0],
+                                                       window=16),
+                                   cfg.pattern[1]))
+    cp = CPSL(make_split_model(cfg, 1), CPSLConfig(
+        cut_layer=1, n_clusters=2, cluster_size=2, batch_per_device=2))
+    data = LMClusterData(MarkovLM(cfg.vocab_size, seed=0), 4, 2, 48)
+    clusters = [[0, 1], [2, 3]]
+    batches = [data.cluster_batch(c, seed=batch_seed(0, 0, m, 0))
+               for m, c in enumerate(clusters)]
+    state = cp.init_state(streams.model_generator(0, "cpu"))
+    module = fk if arch == "gemma2-2b" else sk
+    outs = []
+    for dev in ("cpu", cuda):
+        before = module.launches
+        outs.append(cp.run_round(
+            tree.map(lambda t: t.to(dev), state),
+            lambda m, l, d=dev: {k: to_device(a, d)
+                                 for k, a in batches[m].items()}))
+        if dev == cuda:
+            # 2 steps of 2 * (K*v + layers - v) at K = 2, v = 1
+            assert module.launches - before == 2 * 2 * (2 + cfg.n_layers - 1)
+    (s_cpu, m_cpu), (s_card, m_card) = outs
+    assert m_card["loss"] == pytest.approx(m_cpu["loss"], rel=1e-5)
+    for a, b in zip(tree.leaves(s_cpu), tree.leaves(s_card)):
+        if a.dtype.is_floating_point:
+            err = float((b.cpu() - a).abs().max()) / max(
+                1.0, float(a.abs().max()))
+            assert err <= 1e-4, err
+        else:
+            assert torch.equal(b.cpu(), a)

@@ -201,7 +201,8 @@ def test_split_model_surface(params, v):
     assert float(tl) == pytest.approx(float(rl), rel=1e-6)
 
 
-@pytest.mark.parametrize("arch,slice_", [("qwen2-0.5b", "slice 4"),
+@pytest.mark.parametrize("arch,slice_", [("phi3.5-moe-42b-a6.6b", "slice 5"),
+                                         ("deepseek-v2-lite-16b", "slice 5"),
                                          ("whisper-small", "slice 6")])
 def test_unported_splits_raise(arch, slice_):
     with pytest.raises(NotImplementedError, match=slice_):
@@ -308,5 +309,4 @@ def test_schedule_and_clipping_match_reference():
     for k in g:
         np.testing.assert_allclose(tc[k].numpy(), np.asarray(rc[k]),
                                    rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        toptim.make("adamw_mixed", 0.1)
+    assert toptim.make("adamw_mixed", 0.1).name == "adamw_mixed"

@@ -14,7 +14,12 @@ failures is caught:
    timed with CUDA events beside the plain version, a PyTorch library call
    where one computes the same function, and the card's bound:
    - flash attention (K1) at gemma2-2b prefill: B*G = 16 kv heads, R = 2,
-     S = 5120, D = 256, bf16, softcap 50, window 4096 and 0;
+     S = 5120, D = 256, bf16, softcap 50, window 4096 and 0; at
+     deepseek-v2-lite's MLA prefill, q = kv = (64, 4096, 192), and at
+     phi3.5-moe's and jamba's, q (128, 4096, 128) over kv (32, 4096, 128),
+     causal, beside scaled_dot_product_attention (the same function);
+   - the SSD scan (K2) at jamba's prefill shape: x (4, 4096, 128, 64), B,
+     C (4, 4096, 1, 16), chunk 256, bf16;
    - the SSD scan (K2) at the shape mamba2-2.7b prefill gives it: x
      (4, 8192, 80, 64) and B, C (4, 8192, 1, 128) as strided views of one
      packed projection, chunk 256, bf16; at the flat per-head slice
@@ -31,14 +36,22 @@ failures is caught:
    8192-token prompt and 16 greedy steps; the prefill logits against the
    chunked SSD path; a reduced mamba2 in float32 whose tokens must match
    the scan path exactly.
-5. train the paper's LeNet with CPSL (Alg. 1) through ``CPSLTrainer`` at
+5. moe_serve: deepseek-v2-lite-16b at full width and depth (27 layers,
+   MLA prefill through K1 at D = 192), phi3.5-moe-42b (8 of 32 layers)
+   and jamba-v0.1-52b (one 8-layer period: K1 once, K2 seven times) at
+   full width, bf16 params, batch 4, a 4096-token prompt, 16 greedy
+   steps, each through ``serve`` with the launches of each kernel
+   expected from the layer kinds; the prefill logits held to the plain
+   path under a routing-flip rule (``moe_routing_check``); a reduced f32
+   model of each whose tokens must match the naive path exactly.
+6. train the paper's LeNet with CPSL (Alg. 1) through ``CPSLTrainer`` at
    the paper's configuration (30 devices, 6 clusters of 5, batch 16) on
    synthetic non-IID MNIST: SAA cut selection, then 8 rounds with Gibbs
    clustering, looped and fused. It launches no hand-written kernel (the
    reference's training path has no Pallas kernel); it checks fused
    against looped, the card against the CPU for one round, a fused round
    with no host sync, and that the loss falls.
-6. fleet: the quickstart's second half on the same data and cut,
+7. fleet: the quickstart's second half on the same data and cut,
    through ``FleetRunner.run`` (``CPSL.run_fleet``, the replica axis
    batched): the quickstart's 4-replica fleet; the README's 9-replica
    grid (seeds 0-2 x cluster sizes 3, 5, 10, padded to 10 x 10, 20
@@ -48,7 +61,7 @@ failures is caught:
    planner (``sim.batched``: SAA against the looped SAA, then 3 rounds of
    ``CPSLTrainer`` with ``resource_mgmt="gibbs-mc"``). It launches no
    hand-written kernel either.
-7. lm_train: split-LM CPSL training (``CPSL.run_round``) at full width
+8. lm_train: split-LM CPSL training (``CPSL.run_round``) at full width
    and depth, gemma2-2b (S = 5120) through K1 and mamba2-2.7b (S = 4096)
    through K2, both bf16 with remat, 2 clusters of 2 devices, 2 rounds,
    the cut from SAA; each kernel's launches must equal 2 * (K*v + layers
@@ -58,12 +71,14 @@ failures is caught:
    ``launch/train.py --arch gemma2-2b --reduced`` through
    ``CPSLTrainer``.
 
-Prints one ``{"train": {...}}`` line, one ``{"fleet": {...}}`` line, one
-``{"lm_train": {...}}`` line, one ``{"kernels": [...]}`` line and, last,
-the device line ``{"ok": true, "device": {...}}``.
+Prints one ``{"moe_serve": {...}}`` line, one ``{"train": {...}}`` line,
+one ``{"fleet": {...}}`` line, one ``{"lm_train": {...}}`` line, one
+``{"kernels": [...]}`` line, the script's seconds and, last, the device
+line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -84,6 +99,8 @@ LOGITS_TOL = 0.15                  # tests/test_kernels.py: bf16 model path
 
 BATCH, PROMPT, STEPS = 4, 5120, 16
 MAMBA_PROMPT = 8192                # 32 chunks of 256
+MOE_PROMPT = 4096                  # B*S = 16384 > 4096: the MoE prefill
+                                   # drops at capacity, decode is no_drop
 
 
 def log(msg: str):
@@ -184,7 +201,7 @@ def flash_sweep() -> dict:
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-        for D in (16, 32, 64, 128, 256):
+        for D in (16, 32, 64, 128, 192, 256):
             for window in (0, 64):
                 for cap in (0.0, 50.0):
                     for (BHkv, R, Sq, Skv, causal, q_offset) in (
@@ -264,6 +281,61 @@ def flash_slice_shapes() -> list:
     return rows
 
 
+# K1 at the MoE models' prefill shapes: (label, kv heads a row, R, D)
+FLASH_MOE_SHAPES = [
+    ("deepseek-v2-lite-16b MLA", 16, 1, 192),   # G = H = 16, qk 128 + 64
+    ("phi3.5-moe / jamba GQA", 8, 4, 128),      # 32 heads over 8 kv heads
+]
+
+
+def flash_moe_shapes() -> list:
+    """K1 at the MoE models' prefill shapes (batch BATCH, MOE_PROMPT
+    tokens, bf16, causal, no softcap, scale 1 / sqrt(D)): error, kernel,
+    plain and library times and the bound. Here
+    ``scaled_dot_product_attention`` computes exactly the same function,
+    so library_ms is a true yardstick; its error is printed too. The port
+    never calls it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_flat
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    S, rows = MOE_PROMPT, []
+    for label, G, R, D in FLASH_MOE_SHAPES:
+        q, k, v = _flash_inputs(gen, BATCH * G, R, S, S, D, torch.bfloat16)
+        kw = dict(causal=True, window=0, softcap=0.0, q_offset=0,
+                  kv_repeat=R)
+        got = flash_attention_flat(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = attention_ref(q, k, v, **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        if not err < BF16_TOL:
+            raise AssertionError(f"flash_attention {label}: max abs err "
+                                 f"{err}")
+        q4 = q.view(BATCH, G * R, S, D)
+        k4, v4 = k.view(BATCH, G, S, D), v.view(BATCH, G, S, D)
+        lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+            q4, k4, v4, is_causal=True, enable_gqa=R > 1)
+        lib_err = (lib().reshape(q.shape).float() - want.float()
+                   ).abs().max().item()
+        del want
+        bound_ms, bound_by = _attention_bound_ms(
+            BATCH * G * R, BATCH * G, S, S, D, torch.bfloat16, True, 0)
+        row = {"label": label, "shape": f"q ({BATCH * G * R},{S},{D}) "
+               f"kv ({BATCH * G},{S},{D}) bf16 causal",
+               "max_abs_err": err,
+               "ms": time_ms(lambda: flash_attention_flat(q, k, v, **kw), 10),
+               "plain_ms": time_ms(lambda: attention_ref(q, k, v, **kw), 2),
+               "library_ms": time_ms(lib, 10), "library_max_abs_err": lib_err,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        log("flash_attention moe shape: " + json.dumps(row))
+        rows.append(row)
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return rows
+
+
 # (BH, S, P, N, chunk, dtype name, large |A| dt)
 SSD_CASES = [
     # the cases of tests/test_kernels.py::SSD_CASES
@@ -285,6 +357,9 @@ SSD_CASES = [
     # exp(cum_i - cum_j) overflows above the diagonal: no NaN may leak
     (2, 256, 64, 128, 256, "float32", True),
     (2, 256, 64, 128, 256, "bfloat16", True),
+    # jamba's N = 16 at its P = 64: chunk 256 in bf16, chunks of 64 in f32
+    (2, 512, 64, 16, 256, "bfloat16", False),
+    (2, 512, 64, 16, 64, "float32", False),
 ]
 
 
@@ -365,15 +440,17 @@ def _ssd_bound_ms(B_, S, H, G, P, N, Q, dtype):
              "operations_ms": 1e3 * t_ops})
 
 
-def _ssd_model_inputs(gen, B_, S, H, G, P, N):
+def _ssd_model_inputs(gen, B_, S, H, G, P, N, bc_scale=None):
     """x, B and C as mamba2's block hands them to the kernel: strided views
     of one packed bf16 projection (B, S, H*P + 2*G*N), B and C once per
-    group; dt (B, S, H) and A (H,) in f32. Scaled as ``_ssd_inputs``."""
+    group; dt (B, S, H) and A (H,) in f32. Scaled as ``_ssd_inputs``
+    unless ``bc_scale`` names B's and C's scale."""
     import torch
     import torch.nn.functional as F
     packed = torch.randn((B_, S, H * P + 2 * G * N), device="cuda",
                          generator=gen)
-    packed[..., H * P:] *= 0.5 * min(1.0, 32 / N)
+    packed[..., H * P:] *= (0.5 * min(1.0, 32 / N) if bc_scale is None
+                            else bc_scale)
     packed = packed.to(torch.bfloat16)
     x = packed[..., :H * P].reshape(B_, S, H, P)
     Bm = packed[..., H * P:H * P + G * N].reshape(B_, S, G, N)
@@ -429,6 +506,51 @@ def ssd_shapes() -> dict:
         del args, got
         torch.cuda.empty_cache()
     return rows
+
+
+def ssd_jamba_shape() -> dict:
+    """K2 at the shape jamba's prefill gives it (its Mamba layers: B =
+    BATCH, MOE_PROMPT tokens, 128 heads of P = 64, one group of B and C
+    with N = 16, chunk 256, bf16, strided views of one packed projection,
+    through ``ops.ssd``): error against the plain version, kernel and plain
+    times and the byte bound. No PyTorch call computes the SSD scan.
+
+    SSD_BF16_TOL is under one bf16 ulp only while |y| < 8. With
+    ``_ssd_inputs``' scale of B and C (0.5 at N = 16) the largest |y| of
+    this many outputs passes 8, where one ulp is 0.0625 and two roundings
+    of nearly equal f32 values differ by it; B and C are scaled by 0.125
+    here (the mamba2 rows' scale), and the plain version's largest |y| is
+    checked below 8."""
+    import torch
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.kernel import chunk_len
+    from repro_torch.kernels.ssd.ref import ssd_grouped_ref
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    B_, S, H, P, N, chunk = BATCH, MOE_PROMPT, 128, 64, 16, 256
+    Q = chunk_len(S, chunk)
+    args = _ssd_model_inputs(gen, B_, S, H, 1, P, N, bc_scale=0.125)
+    got = ssd_ops.ssd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    want = ssd_grouped_ref(*args, chunk=Q)
+    err, y_max = _ssd_err(got, want), want[0].float().abs().max().item()
+    del want
+    if not y_max < 8:
+        raise AssertionError(f"ssd jamba shape: plain max |y| {y_max} >= 8, "
+                             f"past the bf16 limit's range")
+    if not err < SSD_BF16_TOL:
+        raise AssertionError(f"ssd jamba shape: max abs err {err}")
+    bound_ms, bound_by, terms = _ssd_bound_ms(B_, S, H, 1, P, N, Q,
+                                              torch.bfloat16)
+    row = {"shape": f"x ({B_},{S},{H},{P}) strided, B, C ({B_},{S},1,{N}) "
+                    f"per group, bf16, chunk {Q}",
+           "max_abs_err": err, "max_abs_y": y_max,
+           "ms": time_ms(lambda: ssd_ops.ssd(*args, chunk=chunk), 10),
+           "plain_ms": time_ms(lambda: ssd_grouped_ref(*args, chunk=Q), 2),
+           "bound_ms": bound_ms, "bound_by": bound_by, **terms}
+    log("ssd jamba shape: " + json.dumps(row))
+    del args, got
+    torch.cuda.empty_cache()
+    return row
 
 
 def ssd_short_chunks() -> list:
@@ -511,13 +633,24 @@ def _kernel_modules() -> dict:
     return {"flash_attention": fk, "ssd": sk}
 
 
-def serve(cfg, plain_cfg, prompt: int, kernel: str) -> dict:
+def _expected_launches(cfg) -> dict:
+    """Each kernel's launches in one generate: K1 once per attention layer
+    and K2 once per Mamba layer of the prefill; decode launches neither."""
+    mixers = [s.mixer for s in cfg.layer_specs()]
+    return {"flash_attention": mixers.count("attn"),
+            "ssd": mixers.count("mamba")}
+
+
+def serve(cfg, plain_cfg, prompt: int, moe: bool = False) -> dict:
     """``cfg`` at full width through ``ServeEngine.generate`` (batch BATCH,
     ``prompt`` tokens, STEPS greedy steps), with every kernel's launch count
-    set to 0 just before that run and read just after; ``kernel`` must have
-    been launched once per layer. Then a prefill and decode breakdown, a
-    profile of one call each, and the prefill logits against the plain
-    path ``plain_cfg``."""
+    set to 0 just before that run and read just after; each kernel must
+    have been launched once per layer of its kind
+    (``_expected_launches``). Then a prefill and decode breakdown, a
+    profile of one call each (``moe``: one prefill, the card alone), and
+    the prefill logits against the plain path ``plain_cfg``: all rows
+    within LOGITS_TOL, or for a MoE model the routing-flip rule of
+    ``moe_routing_check``."""
     import torch
     from repro_torch import streams
     from repro_torch.models import api
@@ -526,8 +659,9 @@ def serve(cfg, plain_cfg, prompt: int, kernel: str) -> dict:
     params = api.init(streams.model_generator(0, "cuda"), cfg)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"{cfg.name} init: {n_params / 1e9:.3f} B params in "
-        f"{time.perf_counter() - t0:.2f} s")
+    param_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    log(f"{cfg.name} init: {n_params / 1e9:.3f} B params ({param_gb:.2f} GB, "
+        f"{cfg.n_layers} layers) in {time.perf_counter() - t0:.2f} s")
     cap = prompt + STEPS
     eng = ServeEngine(cfg, params, cap=cap, device="cuda")
     batch = {"tokens": torch.randint(
@@ -547,10 +681,10 @@ def serve(cfg, plain_cfg, prompt: int, kernel: str) -> dict:
     generate_s = time.perf_counter() - t0
     launches = {name: m.launches for name, m in modules.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if launches[kernel] != cfg.n_layers:
-        raise AssertionError(f"{kernel} launched {launches[kernel]} times in "
-                             f"one generate; expected {cfg.n_layers} (one "
-                             f"per layer of the prefill)")
+    if launches != _expected_launches(cfg):
+        raise AssertionError(f"{cfg.name}: kernel launches {launches} in one "
+                             f"generate; expected {_expected_launches(cfg)} "
+                             f"(one per layer of its kind in the prefill)")
     if out.shape != (BATCH, STEPS) or out.dtype != torch.int32 or not (
             0 <= int(out.min()) and int(out.max()) < cfg.vocab_size):
         raise AssertionError(f"bad generate output {out.shape} {out.dtype}")
@@ -570,10 +704,14 @@ def serve(cfg, plain_cfg, prompt: int, kernel: str) -> dict:
     decode_ms = 1e3 * (time.perf_counter() - t0) / (STEPS - 1)
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("non-finite prefill logits")
-    profiles = {
-        "prefill": device_profile(lambda: eng.prefill(batch)),
-        "decode_step": device_profile(
-            lambda: eng.decode(cache, tok, prompt + STEPS - 1))}
+    if moe:
+        profiles = {"prefill": device_profile(lambda: eng.prefill(batch),
+                                              host_ops=False)}
+    else:
+        profiles = {
+            "prefill": device_profile(lambda: eng.prefill(batch)),
+            "decode_step": device_profile(
+                lambda: eng.decode(cache, tok, prompt + STEPS - 1))}
     del cache
     for name, prof in profiles.items():
         log(f"profile {cfg.name} {name}: " + json.dumps(prof))
@@ -586,11 +724,10 @@ def serve(cfg, plain_cfg, prompt: int, kernel: str) -> dict:
     plain_prefill_ms = 1e3 * (time.perf_counter() - t0)
     del cache
     err = (logits - logits_plain).abs().max().item()
-    if not err <= LOGITS_TOL:
-        raise AssertionError(f"{cfg.name} prefill logits: kernel vs plain "
-                             f"path max abs err {err} > {LOGITS_TOL}")
     result = {
-        "model": cfg.name, "batch": BATCH, "prompt": prompt,
+        "model": cfg.name, "n_layers": cfg.n_layers,
+        "param_dtype": cfg.param_dtype, "params_b": n_params / 1e9,
+        "params_gb": param_gb, "batch": BATCH, "prompt": prompt,
         "steps": STEPS, "cap": cap, "launches_per_generate": launches,
         "generate_s": generate_s,
         "tokens_per_s": BATCH * STEPS / generate_s,
@@ -599,7 +736,13 @@ def serve(cfg, plain_cfg, prompt: int, kernel: str) -> dict:
         "logits_max_abs_err_vs_plain": err, "peak_memory_gb": peak_gb,
         "device_busy_share": {k: v["busy_share"]
                               for k, v in profiles.items()},
+        "prefill_top_kernels_ms": profiles["prefill"]["top"],
         "first_row": out[0].tolist()}
+    if moe:
+        result["routing"] = moe_routing_check(eng, plain, batch, logits)
+    elif not err <= LOGITS_TOL:
+        raise AssertionError(f"{cfg.name} prefill logits: kernel vs plain "
+                             f"path max abs err {err} > {LOGITS_TOL}")
     log("serve: " + json.dumps(result))
     del params, eng, plain
     torch.cuda.empty_cache()
@@ -615,8 +758,7 @@ def gemma_serve_phase() -> dict:
                                    small.pattern[1]))
     small_path_check(small, small.replace(attn_impl="naive"), "gemma2")
     cfg = registry.get("gemma2-2b").replace(attn_impl="pallas")
-    return serve(cfg, cfg.replace(attn_impl="naive"), PROMPT,
-                 "flash_attention")
+    return serve(cfg, cfg.replace(attn_impl="naive"), PROMPT)
 
 
 def mamba_serve_phase() -> dict:
@@ -625,11 +767,188 @@ def mamba_serve_phase() -> dict:
         dtype="float32", ssd_impl="pallas")
     small_path_check(small, small.replace(ssd_impl="scan"), "mamba2")
     cfg = registry.get("mamba2-2.7b").replace(ssd_impl="pallas")
-    return serve(cfg, cfg.replace(ssd_impl="chunked"), MAMBA_PROMPT, "ssd")
+    return serve(cfg, cfg.replace(ssd_impl="chunked"), MAMBA_PROMPT)
 
 
 # --------------------------------------------------------------------------
-# 5. train: the paper's LeNet with CPSL (Alg. 1) through CPSLTrainer
+# 5. moe_serve: deepseek-v2-lite, phi3.5-moe and jamba through K1 and K2
+# --------------------------------------------------------------------------
+
+# full width, bf16 params; the depth cut to what one 80 GB card holds
+# beside the plain path's transients
+MOE_MODELS = {
+    "deepseek-v2-lite-16b": {},                 # full depth, 27 layers
+    "phi3.5-moe-42b-a6.6b": {"n_layers": 8},    # 8 of 32 layers
+    "jamba-v0.1-52b": {"n_layers": 8},          # 1 of 4 periods: every
+                                                # layer kind
+}
+
+
+@contextlib.contextmanager
+def _moe_routes(record: list, replay=None):
+    """``models.common.moe_route`` wrapped for the calls inside: each MoE
+    layer's top-k expert indices (the router's order) are appended to
+    ``record``. With ``replay``, each layer takes the next of those
+    indices instead of its own top-k, and its gates are its own
+    probabilities there, renormalised."""
+    import torch
+    from repro_torch.models import common as cm
+    orig = cm.moe_route
+    given = iter(replay) if replay is not None else None
+
+    def route(p, x, k):
+        probs, w, idx = orig(p, x, k)
+        if given is not None:
+            idx = next(given)
+            w = torch.gather(probs, -1, idx)
+            w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        record.append(idx)
+        return probs, w, idx
+
+    cm.moe_route = route
+    try:
+        yield
+    finally:
+        cm.moe_route = orig
+
+
+@contextlib.contextmanager
+def _first_flash_inputs(store: dict):
+    """The first K1 call's flat q, k, v and options inside, copied into
+    ``store``."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    orig = fa_ops.flash_attention_flat
+
+    def capture(q, k, v, **kw):
+        if not store:
+            store.update(q=q.clone(), k=k.clone(), v=v.clone(), kw=kw)
+        return orig(q, k, v, **kw)
+
+    fa_ops.flash_attention_flat = capture
+    try:
+        yield
+    finally:
+        fa_ops.flash_attention_flat = orig
+
+
+def moe_routing_check(eng, plain, batch, logits) -> dict:
+    """The bf16 prefill logits of a MoE model, kernel path (``eng``, whose
+    prefill gave ``logits``) against the plain path (``plain``). A bf16
+    difference in an attention output can flip a near-tie in a router's
+    top-k; that token then takes other experts and its logits move by
+    O(1): another route, not a kernel error. The rule, none of it caught:
+
+    1. K1 at the model's own q, k, v (the first attention layer of this
+       prefill) against the plain attention, within BF16_TOL;
+    2. per MoE layer, the tokens whose expert set differs between the two
+       paths, counted and printed;
+    3. the rows (requests) with no such token in any layer: last-position
+       logits within LOGITS_TOL;
+    4. the plain path replaying the kernel path's routes: every row within
+       LOGITS_TOL."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_flat
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    B, S = batch["tokens"].shape
+    kernel_routes, plain_routes, replayed, first = [], [], [], {}
+    with _moe_routes(kernel_routes), _first_flash_inputs(first):
+        logits_k, cache = eng.prefill(batch)
+    del cache
+    with _moe_routes(plain_routes):
+        logits_p, cache = plain.prefill(batch)
+    del cache
+    with _moe_routes(replayed, replay=kernel_routes):
+        logits_r, cache = plain.prefill(batch)
+    del cache
+    if not torch.equal(logits_k, logits):
+        raise AssertionError("the kernel path's prefill is not repeatable")
+
+    flips, last = [], torch.zeros(B, dtype=torch.bool, device="cuda")
+    rows = torch.zeros(B, dtype=torch.bool, device="cuda")
+    for a, b in zip(kernel_routes, plain_routes):
+        diff = (a.reshape(B, S, -1).sort(-1).values
+                != b.reshape(B, S, -1).sort(-1).values).any(-1)
+        flips.append(int(diff.sum()))
+        rows |= diff.any(-1)
+        last |= diff[:, -1]
+    err_rows = (logits_k - logits_p).abs().amax(-1)
+    clean = ~rows
+    err_clean = (float(err_rows[clean].max()) if bool(clean.any())
+                 else None)
+    err_replay = (logits_k - logits_r).abs().max().item()
+
+    q, k, v, kw = first["q"], first["k"], first["v"], first["kw"]
+    got = flash_attention_flat(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err_k1 = (got.float() - attention_ref(q, k, v, **kw).float()
+              ).abs().max().item()
+    out = {"moe_layers": len(flips), "tokens": B * S,
+           "flipped_tokens_per_layer": flips,
+           "flipped_tokens": sum(flips),
+           "rows_with_a_flipped_token": int(rows.sum()),
+           "rows_whose_last_token_flipped": int(last.sum()),
+           "logits_max_abs_err_rows_without_flip": err_clean,
+           "logits_max_abs_err_per_row": err_rows.tolist(),
+           "logits_max_abs_err_replayed_routes": err_replay,
+           "k1_first_layer": {
+               "shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} "
+                        f"{str(q.dtype).split('.')[1]}",
+               "max_abs_err": err_k1}}
+    log("routing: " + json.dumps(out))
+    if not err_k1 < BF16_TOL:
+        raise AssertionError(f"K1 at the model's first-layer q/k/v: max abs "
+                             f"err {err_k1} >= {BF16_TOL}")
+    if err_clean is not None and not err_clean <= LOGITS_TOL:
+        raise AssertionError(f"prefill logits of the rows without a routing "
+                             f"flip: max abs err {err_clean} > {LOGITS_TOL}")
+    if not err_replay <= LOGITS_TOL:
+        raise AssertionError(f"prefill logits, plain path on the kernel "
+                             f"path's routes: max abs err {err_replay} > "
+                             f"{LOGITS_TOL}")
+    return out
+
+
+def _moe_small(arch: str):
+    """The reduced config in f32 on the kernel paths; deepseek's MLA keeps
+    its real head dims (128 + 64), so its small check runs K1 at D = 192
+    (``reduce_for_smoke``'s 16 + 8 is no kernel head dim)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    cfg = registry.reduce_for_smoke(registry.get(arch))
+    if cfg.mla is not None:
+        cfg = cfg.replace(mla=dataclasses.replace(
+            cfg.mla, qk_nope_head_dim=128, qk_rope_head_dim=64,
+            v_head_dim=128))
+    return cfg.replace(dtype="float32", attn_impl="pallas",
+                       ssd_impl="pallas")
+
+
+def moe_serve_phase() -> dict:
+    """Each of MOE_MODELS: the reduced f32 check (tokens equal to the
+    naive/scan path's), then ``serve`` at full width with bf16 params,
+    batch BATCH, a MOE_PROMPT-token prompt and STEPS greedy steps, each
+    model's params freed before the next."""
+    from repro_torch.configs import registry
+    out = {}
+    for arch, cut in MOE_MODELS.items():
+        t0 = time.perf_counter()
+        small = _moe_small(arch)
+        small_path_check(small, small.replace(attn_impl="naive",
+                                              ssd_impl="scan"), arch)
+        full = registry.get(arch)
+        cfg = full.replace(param_dtype="bfloat16", attn_impl="pallas",
+                           ssd_impl="pallas", **cut)
+        out[arch] = serve(cfg, cfg.replace(attn_impl="naive",
+                                           ssd_impl="chunked"),
+                          MOE_PROMPT, moe=True)
+        out[arch]["full_n_layers"] = full.n_layers
+        out[arch]["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+# --------------------------------------------------------------------------
+# 6. train: the paper's LeNet with CPSL (Alg. 1) through CPSLTrainer
 # --------------------------------------------------------------------------
 
 TRAIN_ROUNDS = 8
@@ -800,7 +1119,7 @@ def train_phase() -> dict:
 
 
 # --------------------------------------------------------------------------
-# 6. fleet: FleetRunner over CPSL.run_fleet, and the batched planner
+# 7. fleet: FleetRunner over CPSL.run_fleet, and the batched planner
 # --------------------------------------------------------------------------
 
 # The grids (FleetConfig fields). QUICKSTART_FLEET is examples/quickstart.py's
@@ -1160,7 +1479,7 @@ def fleet_phase(train: dict, smi: str) -> dict:
 
 
 # --------------------------------------------------------------------------
-# 7. lm_train: split-LM CPSL training, K1 (gemma2-2b) and K2 (mamba2-2.7b)
+# 8. lm_train: split-LM CPSL training, K1 (gemma2-2b) and K2 (mamba2-2.7b)
 # --------------------------------------------------------------------------
 
 # N = 4 devices in M = 2 clusters of K = 2, B = 2 sequences a device, L = 1,
@@ -1555,62 +1874,75 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     smi = device_phase()["nvidia_smi"]
     sweep = flash_sweep()
     shapes = flash_slice_shapes()
+    moe_shapes = flash_moe_shapes()
     ssd_worst = ssd_sweep()
     ssd_rows = ssd_shapes()
+    ssd_jamba = ssd_jamba_shape()
     ssd_short = ssd_short_chunks()
     gemma = gemma_serve_phase()
     mamba = mamba_serve_phase()
+    moe = moe_serve_phase()
     train = train_phase()
     fleet = fleet_phase(train, smi)
     lm_train = lm_train_phase(smi)
 
-    def mean(key):
-        return sum(r[key] for r in shapes) / len(shapes)
-    ssd_model, ssd_flat_row = ssd_rows["model"], ssd_rows["flat"]
+    def launches(name):
+        """The kernel's launches in each main path's run, each counted
+        from 0 just before that run and read just after it."""
+        out = {f"{r['model']} generate": r["launches_per_generate"][name]
+               for r in (gemma, mamba, *(moe[a] for a in MOE_MODELS))}
+        for arch, r in lm_train.items():
+            if isinstance(r, dict) and "launches_per_step" in r:
+                out[f"{arch} training step"] = int(
+                    r["launches_per_step"][name])
+        return out
 
+    mla = moe_shapes[0]
+    ssd_model, ssd_flat_row = ssd_rows["model"], ssd_rows["flat"]
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
-        "launches": gemma["launches_per_generate"]["flash_attention"],
-        "train_launches_per_step": lm_train["gemma2-2b"][
-            "launches_per_step"]["flash_attention"],
-        "max_abs_err": max(r["max_abs_err"] for r in shapes),
-        "ms": mean("ms"), "plain_ms": mean("plain_ms"),
-        "bound_ms": mean("bound_ms"),
-        "bound_by": shapes[0]["bound_by"],
-        "library_ms": mean("library_ms"),
-        "per": "launch, mean of the local (window 4096) and global layer "
-               "shapes, which gemma2-2b prefill launches 13 times each",
+        "launches": sum(moe[a]["launches_per_generate"]["flash_attention"]
+                        for a in MOE_MODELS),
+        "launches_by_path": launches("flash_attention"),
+        "max_abs_err": mla["max_abs_err"],
+        "ms": mla["ms"], "plain_ms": mla["plain_ms"],
+        "bound_ms": mla["bound_ms"], "bound_by": mla["bound_by"],
+        "library_ms": mla["library_ms"],
+        "per": "launch at deepseek-v2-lite-16b's MLA prefill shape (D = "
+               "192); launches: the moe_serve generates (27 + 8 + 1)",
         "library_call": "torch.nn.functional.scaled_dot_product_attention "
-                        "without softcap (no torch call softcaps)",
-        "shapes": shapes, "sweep_max_abs_err": sweep}, {
+                        "(the same function at this shape; for the gemma2 "
+                        "shapes without softcap: no torch call softcaps)",
+        "shape": mla["shape"], "moe_shapes": moe_shapes,
+        "gemma2_shapes": shapes, "sweep_max_abs_err": sweep}, {
         "name": "ssd", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:28",
-        "launches": mamba["launches_per_generate"]["ssd"],
-        "train_launches_per_step": lm_train["mamba2-2.7b"][
-            "launches_per_step"]["ssd"],
-        "max_abs_err": ssd_model["max_abs_err"],
-        "ms": ssd_model["ms"], "plain_ms": ssd_model["plain_ms"],
-        "bound_ms": ssd_model["bound_ms"],
-        "bound_by": ssd_model["bound_by"], "library_ms": None,
-        "flat_ms": ssd_flat_row["ms"], "flat_plain_ms": ssd_flat_row["plain_ms"],
-        "flat_bound_ms": ssd_flat_row["bound_ms"],
-        "flat_max_abs_err": ssd_flat_row["max_abs_err"],
+        "launches": moe["jamba-v0.1-52b"]["launches_per_generate"]["ssd"],
+        "launches_by_path": launches("ssd"),
+        "max_abs_err": ssd_jamba["max_abs_err"],
+        "ms": ssd_jamba["ms"], "plain_ms": ssd_jamba["plain_ms"],
+        "bound_ms": ssd_jamba["bound_ms"],
+        "bound_by": ssd_jamba["bound_by"], "library_ms": None,
         "per": "wrapper call (three CUDA kernels in bf16) at the shape "
-               "mamba2-2.7b prefill gives it, once per layer; flat_*: the "
-               "flat per-head slice shape",
+               "jamba's prefill gives it (N = 16), once per Mamba layer; "
+               "launches: the moe_serve jamba generate",
         "library_call": "none: no single PyTorch call computes the SSD scan",
-        "shape": ssd_model["shape"], "flat_shape": ssd_flat_row["shape"],
+        "shape": ssd_jamba["shape"], "mamba2_shape": ssd_model,
+        "mamba2_flat_shape": ssd_flat_row,
         "short_chunks": ssd_short, "sweep_max_abs_err": ssd_worst}]
+    print(json.dumps({"moe_serve": moe}))
     print(json.dumps({"train": train}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"lm_train": lm_train}))
     print(json.dumps({"kernels": kernels}))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,12 +16,13 @@ A ``SplitModel`` bundles:
                                                smashed data's shape/dtype
 
 Cut-layer conventions per family:
-  - LM (dense/ssm): device = embed + blocks[:v]; server = blocks[v:] +
-    final norm + an untied head (the device owns the embedding table; the
-    server cannot share it across the wireless link).
+  - LM (dense/MoE/ssm/hybrid, GQA or MLA attention): device = embed +
+    blocks[:v]; server = blocks[v:] + final norm + an untied head (the
+    device owns the embedding table; the server cannot share it across
+    the wireless link). Each half returns its MoE layers' summed router
+    aux loss beside its output.
   - LeNet (the paper's model): layer-granular Table III split.
-The enc-dec split comes with ROADMAP slice 6; MoE and MLA layers with
-slice 5.
+The enc-dec split comes with ROADMAP slice 6.
 """
 from __future__ import annotations
 
@@ -183,8 +184,6 @@ def make_lm_split(cfg: ModelConfig, v: int) -> SplitModel:
     ``{"embed": {"tok"}, "prologue": [v blocks], "stack": []}``, the
     server ``{"prologue", "stack" (period-stacked), "final_norm", "head"
     (D, V)}``."""
-    for spec in cfg.layer_specs():
-        tfm._unported(spec, cfg)
     dev_cfg, srv_cfg = _split_cfgs(cfg, v)
     pdt = cm.pdtype(cfg)
 

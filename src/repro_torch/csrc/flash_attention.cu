@@ -41,6 +41,11 @@
 //   * D = 256: O is 64 x 256 f32, 128 registers a thread; the kv tile is
 //     32 keys there (64 below), so nothing spills and two blocks (96 KB of
 //     shared memory each) fit an SM.
+//   * D = 192 (MLA prefill: qk_nope 128 + qk_rope 64), the one width that
+//     is not a power of two: a row is three 128-byte swizzle atoms, O is
+//     64 x 192 f32 (96 registers a thread, one m64n192k16 wgmma a k-step
+//     of P V), and the kv tile is 64 keys: 24 KB of Q plus two stages of
+//     24 KB K and V tiles, 120 KB, one block an SM.
 // float32 (the reduced models' exact-token checks, which TF32 would miss)
 // keeps the CUDA-core design, attn_f32_kernel: 256 threads per 64-row
 // query tile, f32 tiles in shared memory, 4 x 4 register micro-tiles of
@@ -480,6 +485,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     FA_CASE(32)
     FA_CASE(64)
     FA_CASE(128)
+    FA_CASE(192)
     FA_CASE(256)
 #undef FA_CASE
     default:
@@ -488,7 +494,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 const char* flash_attention_error_string(int code) {
-  if (code == -1) return "unsupported head dim (16, 32, 64, 128 or 256)";
+  if (code == -1) return "unsupported head dim (16, 32, 64, 128, 192 or 256)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

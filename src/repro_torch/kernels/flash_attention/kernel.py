@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import _build, no_grad_inputs
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0

@@ -6,6 +6,9 @@
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
         --batch 4 --prompt-len 8192 --steps 16
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b --param-dtype bfloat16 \
+        --batch 4 --prompt-len 4096 --steps 16
 
 Attention layers run the flash-attention kernel and Mamba-2 layers the
 SSD kernel (``attn_impl``/``ssd_impl`` "pallas", the reference's name);
@@ -24,7 +27,7 @@ from repro_torch.models import api
 from repro_torch.serving.engine import ServeEngine
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true",
@@ -35,13 +38,19 @@ def main():
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    ap.add_argument("--param-dtype", choices=("float32", "bfloat16"),
+                    help="ModelConfig.param_dtype (default: the config's, "
+                         "float32); deepseek-v2-lite-16b fits one 80 GB "
+                         "card whole only in bfloat16")
+    args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = registry.get(args.arch)
     if args.reduced:
         cfg = registry.reduce_for_smoke(cfg)
     cfg = cfg.replace(attn_impl="pallas", ssd_impl="pallas")
+    if args.param_dtype:
+        cfg = cfg.replace(param_dtype=args.param_dtype)
     params = api.init(streams.model_generator(args.seed, device), cfg)
     eng = ServeEngine(cfg, params, cap=args.prompt_len + args.steps,
                       device=device)

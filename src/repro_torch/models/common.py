@@ -1,12 +1,12 @@
 """Common model components in PyTorch: norms, rope, grouped attention
-(naive / chunked / the hand-written flash kernel), GQA, MLPs, embeddings.
+(naive / chunked / the hand-written flash kernel), GQA, MLA (DeepSeek-V2
+multi-head latent attention), MLPs, the GShard-style MoE, embeddings.
 
 Functional like the reference: ``*_init(gen, ...) -> params`` (nested dicts
 of f32 tensors on the generator's device) and ``*_apply(params, x, ...) ->
 y``. Compute runs in the config's compute dtype (bf16 by default); softmax
 statistics in f32. The losses (``lm_head_loss``, the fused chunked
-cross-entropy and ``cross_entropy``) train the split LMs; MLA and MoE come
-with a later slice.
+cross-entropy and ``cross_entropy``) train the split LMs.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLACfg, MoECfg, ModelConfig
 
 Params = dict
 
@@ -384,6 +384,99 @@ def gqa_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 # --------------------------------------------------------------------------
+# MLA attention (DeepSeek-V2 multi-head latent attention)
+# --------------------------------------------------------------------------
+
+def mla_init(gen, cfg: ModelConfig) -> Params:
+    m: MLACfg = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    dt = pdtype(cfg)
+    qdim = H * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+    return {
+        # q projection (V2-Lite: full rank)
+        "wq": dense_init(gen, d, qdim, dtype=dt),
+        # compressed kv latent + decoupled rope key
+        "w_dkv": dense_init(gen, d, m.kv_lora_rank + m.qk_rope_head_dim,
+                            dtype=dt),
+        "kv_norm": norm_init(m.kv_lora_rank, "rmsnorm", dt, gen.device),
+        "w_uk": dense_init(gen, m.kv_lora_rank, H * m.qk_nope_head_dim,
+                           dtype=dt),
+        "w_uv": dense_init(gen, m.kv_lora_rank, H * m.v_head_dim, dtype=dt),
+        "wo": dense_init(gen, H * m.v_head_dim, d, dtype=dt),
+    }
+
+
+def mla_project_latent(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                       positions: torch.Tensor):
+    """The cacheable latent: c_kv (B,S,r), normed, and the roped k_rope
+    (B,S,dr)."""
+    m: MLACfg = cfg.mla
+    c_kv, k_rope = torch.split(dense(p["w_dkv"], x),
+                               [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    c_kv = apply_norm(p["kv_norm"], c_kv, "rmsnorm", cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def mla_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+              causal: bool = True, positions: Optional[torch.Tensor] = None,
+              latent: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              kv_valid_len=None, absorbed: bool = False) -> torch.Tensor:
+    """MLA attention. ``latent`` is the (c_kv, k_rope) cache for decode.
+
+    Materialised (prefill): k = [k_nope, k_rope broadcast over heads] and v
+    padded to the qk width dn + dr run through ``grouped_attention`` as H
+    kv heads of one query head each (the flash kernel at head dim dn + dr
+    when ``attn_impl`` selects it). Absorbed (decode): W_UK folded into
+    the query and W_UV into the output, so scores and values touch only
+    the rank-r latent; naive attention, no kernel, as in the reference.
+    """
+    m: MLACfg = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, dv, r = (m.qk_nope_head_dim, m.qk_rope_head_dim,
+                     m.v_head_dim, m.kv_lora_rank)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    q = dense(p["wq"], x).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = torch.split(q, [dn, dr], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    if latent is None:
+        c_kv, k_rope = mla_project_latent(p, x, cfg, positions)
+        q_offset = 0
+    else:
+        c_kv, k_rope = latent
+        q_offset = positions[0] if positions.dim() == 1 else 0
+    Skv = c_kv.shape[1]
+
+    if absorbed:
+        w_uk = p["w_uk"]["w"].reshape(r, H, dn).to(q_nope.dtype)
+        q_lat = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)
+        qq = torch.cat([q_lat, q_rope], dim=-1)             # (B,S,H,r+dr)
+        kk = torch.cat([c_kv, k_rope], dim=-1)              # (B,Skv,r+dr)
+        # one kv head of width r+dr, value c_kv (r)
+        qq = qq.reshape(B, S, 1, H, r + dr) / math.sqrt((dn + dr) / (r + dr))
+        o_lat = naive_attention(qq, kk[:, :, None, :], c_kv[:, :, None, :],
+                                causal=causal, q_offset=q_offset,
+                                kv_valid_len=kv_valid_len)  # (B,S,1,H,r)
+        w_uv = p["w_uv"]["w"].reshape(r, H, dv).to(x.dtype)
+        o = torch.einsum("bshr,rhd->bshd", o_lat[:, :, 0], w_uv)
+    else:
+        k_nope = dense(p["w_uk"], c_kv).reshape(B, Skv, H, dn)
+        v = dense(p["w_uv"], c_kv).reshape(B, Skv, H, dv)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, Skv, H, dr)],
+                      dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        o = grouped_attention(qq.reshape(B, S, H, 1, dn + dr), k,
+                              F.pad(v, (0, dn + dr - dv)), cfg,
+                              causal=causal, q_offset=q_offset,
+                              kv_valid_len=kv_valid_len)
+        o = o.reshape(B, S, H, dn + dr)[..., :dv]
+    return dense(p["wo"], o.reshape(B, S, H * dv))
+
+
+# --------------------------------------------------------------------------
 # MLPs
 # --------------------------------------------------------------------------
 
@@ -412,6 +505,105 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         h = _act(up, cfg.act)
     return dense(p["w_down"], h)
+
+
+# --------------------------------------------------------------------------
+# GShard-style MoE with grouped dense dispatch
+# --------------------------------------------------------------------------
+
+def moe_init(gen, cfg: ModelConfig) -> Params:
+    m: MoECfg = cfg.moe
+    d, dff, E = cfg.d_model, m.d_ff_expert, m.n_experts
+    dt = pdtype(cfg)
+    s_in, s_ff = 1.0 / math.sqrt(d), 1.0 / math.sqrt(dff)
+    p = {
+        "router": _normal(gen, (d, E), s_in, torch.float32),
+        "w_gate": _normal(gen, (E, d, dff), s_in, dt),
+        "w_up": _normal(gen, (E, d, dff), s_in, dt),
+        "w_down": _normal(gen, (E, dff, d), s_ff, dt),
+    }
+    if m.n_shared_experts:
+        p["shared"] = mlp_init(gen, d, dff * m.n_shared_experts, cfg)
+    return p
+
+
+def moe_route(p: Params, x: torch.Tensor, top_k: int):
+    """The router: f32 softmax over the experts, the top-k, and the gates
+    renormalised over the k choices. x: (..., D) -> (probs (..., E),
+    gate_w (..., k), gate_idx (..., k)). Equal probabilities are taken
+    lower expert first, as ``lax.top_k`` takes them (a stable sort:
+    ``torch.topk`` leaves the order of ties open)."""
+    probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+    gate_w, gate_idx = torch.sort(probs, dim=-1, descending=True,
+                                  stable=True)
+    gate_w, gate_idx = gate_w[..., :top_k], gate_idx[..., :top_k]
+    gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
+    return probs, gate_w, gate_idx
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              no_drop: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (y, aux_loss). Grouped dense dispatch, as the
+    reference: tokens split into groups of ``group_size`` (the largest
+    divisor of B*S not above it); each group routes its tokens into (E, C)
+    capacity slots through one-hot dispatch/combine einsums, a slot
+    position counted in token order, then in choice order; choices past
+    capacity C are dropped (``no_drop``: C = g*k, so none can be). The
+    aux loss is Switch's E * sum_e(f_e * p_e) * ``router_aux_weight``."""
+    m: MoECfg = cfg.moe
+    B, S, D = x.shape
+    E, k = m.n_experts, m.top_k
+    T = B * S
+    g = _largest_divisor(T, m.group_size)
+    n = T // g
+    xg = x.reshape(n, g, D)
+
+    probs, gate_w, gate_idx = moe_route(p, xg, k)           # (n, g, k)
+    C = g * k if no_drop else int(math.ceil(g * k / E * m.capacity_factor))
+    oh = F.one_hot(gate_idx, E).float()                     # (n, g, k, E)
+    tok_e = oh.sum(2)                                       # (n, g, E)
+    pos_base = torch.cumsum(tok_e, dim=1) - tok_e           # tokens before t
+    within = torch.cumsum(oh, dim=2) - oh                   # earlier choices
+    pos = ((pos_base[:, :, None, :] + within) * oh).sum(-1)   # (n, g, k)
+    keep = pos < C
+    pos_oh = F.one_hot(torch.where(keep, pos.long(), 0), C).float() \
+        * keep[..., None]                                   # (n, g, k, C)
+    disp = torch.einsum("ngke,ngkc->ngec", oh, pos_oh)
+    comb = torch.einsum("ngke,ngkc->ngec", oh * gate_w[..., None], pos_oh)
+
+    xe = torch.einsum("ngec,ngd->necd", disp.to(x.dtype), xg)   # (n,E,C,D)
+    h = _act(torch.einsum("necd,edf->necf", xe, p["w_gate"].to(x.dtype)),
+             cfg.act)
+    h = h * torch.einsum("necd,edf->necf", xe, p["w_up"].to(x.dtype))
+    ye = torch.einsum("necf,efd->necd", h, p["w_down"].to(x.dtype))
+    y = torch.einsum("ngec,necd->ngd", comb.to(x.dtype), ye)
+
+    f_e = tok_e.mean(dim=(0, 1)) / k                        # fraction routed
+    p_e = probs.mean(dim=(0, 1))
+    aux = E * torch.sum(f_e * p_e) * m.router_aux_weight
+
+    y = y.reshape(B, S, D)
+    if m.n_shared_experts:
+        y = y + mlp_apply(p["shared"], x, cfg)
+    return y, aux
+
+
+def moe_apply_naive(p: Params, x: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Oracle: every expert on every token, no capacity drops. For tests on
+    tiny shapes only."""
+    m: MoECfg = cfg.moe
+    _, gate_w, gate_idx = moe_route(p, x, m.top_k)
+    h = _act(torch.einsum("bsd,edf->bsef", x, p["w_gate"].to(x.dtype)),
+             cfg.act)
+    h = h * torch.einsum("bsd,edf->bsef", x, p["w_up"].to(x.dtype))
+    ye = torch.einsum("bsef,efd->bsed", h, p["w_down"].to(x.dtype))
+    sel = F.one_hot(gate_idx, m.n_experts).float()
+    w = torch.einsum("bske,bsk->bse", sel, gate_w).to(x.dtype)
+    y = torch.einsum("bse,bsed->bsd", w, ye)
+    if m.n_shared_experts:
+        y = y + mlp_apply(p["shared"], x, cfg)
+    return y
 
 
 # --------------------------------------------------------------------------

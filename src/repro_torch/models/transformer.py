@@ -1,5 +1,5 @@
-"""Decoder-only LM stack (attention and Mamba-2 mixers with dense FFNs;
-the MoE and MLA branches come with a later slice).
+"""Decoder-only LM stack covering the dense, MoE, SSM and hybrid families:
+attention (GQA or MLA) and Mamba-2 mixers, dense or MoE FFNs.
 
 The stack = unrolled ``prologue`` blocks + ``n_periods`` repetitions of
 ``pattern``, with the pattern's params stacked on a leading ``n_periods``
@@ -7,8 +7,10 @@ axis as in the reference; the periods run as a Python loop, under
 ``torch.utils.checkpoint`` when ``cfg.remat`` (training: ``loss_fn``).
 Caches follow the same tree. Prefill and decode write each layer's cache
 in place (the reference returns an updated copy): an attention layer the
-new k/v, a Mamba layer its conv window and SSM state, so a step moves no
-cache bytes and a layer's view of the stacked cache stays current.
+new k/v (an MLA layer its latent c_kv and k_rope), a Mamba layer its conv
+window and SSM state, so a step moves no cache bytes and a layer's view of
+the stacked cache stays current. MoE layers return the router's aux loss,
+which ``_stack_forward`` sums.
 """
 from __future__ import annotations
 
@@ -24,19 +26,6 @@ from repro_torch.models import mamba2 as mb
 from repro_torch.models.common import Params
 
 
-def _unported(spec: LayerSpec, cfg: ModelConfig):
-    if spec.ffn == "moe":
-        raise NotImplementedError(
-            "MoE FFNs are not ported yet (ROADMAP queue 1, slice 5: MLA "
-            "and MoE)")
-    if cfg.attn_kind == "mla":
-        raise NotImplementedError(
-            "MLA attention is not ported yet (ROADMAP queue 1, slice 5: "
-            "MLA and MoE)")
-    if spec.mixer not in ("attn", "mamba"):
-        raise ValueError(spec.mixer)
-
-
 def _index(stacked, i: int):
     """The i-th slice of every leaf of a stacked params/cache tree."""
     if isinstance(stacked, dict):
@@ -49,49 +38,66 @@ def _index(stacked, i: int):
 # --------------------------------------------------------------------------
 
 def block_init(gen, cfg: ModelConfig, spec: LayerSpec) -> Params:
-    _unported(spec, cfg)
     dt, dev = cm.pdtype(cfg), gen.device
     p = {"pre_norm": cm.norm_init(cfg.d_model, cfg.norm_kind, dt, dev)}
     if spec.mixer == "attn":
-        p["attn"] = cm.gqa_init(gen, cfg)
-    else:
+        p["attn"] = (cm.mla_init(gen, cfg) if cfg.attn_kind == "mla"
+                     else cm.gqa_init(gen, cfg))
+    elif spec.mixer == "mamba":
         p["mamba"] = mb.mamba_init(gen, cfg)
+    else:
+        raise ValueError(spec.mixer)
     if cfg.post_norm:
         p["post_norm"] = cm.norm_init(cfg.d_model, cfg.norm_kind, dt, dev)
     if spec.ffn != "none":
         p["mlp_norm"] = cm.norm_init(cfg.d_model, cfg.norm_kind, dt, dev)
-        p["mlp"] = cm.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg)
+        if spec.ffn == "moe":
+            p["moe"] = cm.moe_init(gen, cfg)
+        else:
+            p["mlp"] = cm.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg)
         if cfg.post_norm:
             p["mlp_post_norm"] = cm.norm_init(cfg.d_model, cfg.norm_kind,
                                               dt, dev)
     return p
 
 
-def _ffn(p: Params, x, cfg: ModelConfig, spec: LayerSpec):
+def _ffn(p: Params, x, cfg: ModelConfig, spec: LayerSpec,
+         no_drop: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The FFN sublayer with its residual. Returns (x, aux): a MoE layer's
+    router aux loss (``no_drop`` sizes its capacity so no token drops),
+    else 0."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ffn != "none":
         h = cm.apply_norm(p["mlp_norm"], x, cfg.norm_kind, cfg.norm_eps)
-        f = cm.mlp_apply(p["mlp"], h, cfg)
+        if spec.ffn == "moe":
+            f, aux = cm.moe_apply(p["moe"], h, cfg, no_drop=no_drop)
+        else:
+            f = cm.mlp_apply(p["mlp"], h, cfg)
         if cfg.post_norm:
             f = cm.apply_norm(p["mlp_post_norm"], f, cfg.norm_kind,
                               cfg.norm_eps)
         x = x + f
-    return x
+    return x, aux
+
+
+def _mixer(p: Params, x, cfg: ModelConfig, spec: LayerSpec, positions):
+    if spec.mixer == "attn":
+        if cfg.attn_kind == "mla":
+            return cm.mla_apply(p["attn"], x, cfg, causal=True,
+                                positions=positions)
+        return cm.gqa_apply(p["attn"], x, cfg, causal=True,
+                            window=spec.window, positions=positions)
+    return mb.mamba_apply(p["mamba"], x, cfg)
 
 
 def block_apply(p: Params, x, cfg: ModelConfig, spec: LayerSpec,
                 positions) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x, aux_loss)."""
-    _unported(spec, cfg)
     h = cm.apply_norm(p["pre_norm"], x, cfg.norm_kind, cfg.norm_eps)
-    if spec.mixer == "attn":
-        a = cm.gqa_apply(p["attn"], h, cfg, causal=True, window=spec.window,
-                         positions=positions)
-    else:
-        a = mb.mamba_apply(p["mamba"], h, cfg)
+    a = _mixer(p, h, cfg, spec, positions)
     if cfg.post_norm:
         a = cm.apply_norm(p["post_norm"], a, cfg.norm_kind, cfg.norm_eps)
-    x = _ffn(p, x + a, cfg, spec)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return _ffn(p, x + a, cfg, spec)
 
 
 # --------------------------------------------------------------------------
@@ -100,15 +106,21 @@ def block_apply(p: Params, x, cfg: ModelConfig, spec: LayerSpec,
 
 def _attn_cache_init(cfg: ModelConfig, batch: int, cap: int, device,
                      lead: Tuple[int, ...] = ()):
+    """k/v (batch, cap, G, hd), or for MLA the latent: ckv (batch, cap, r)
+    and kr (batch, cap, dr); in the compute dtype, after the ``lead``
+    axes."""
+    def zeros(*shape):
+        return torch.zeros(lead + (batch, cap) + shape, dtype=cm.cdtype(cfg),
+                           device=device)
+    if cfg.attn_kind == "mla":
+        return {"ckv": zeros(cfg.mla.kv_lora_rank),
+                "kr": zeros(cfg.mla.qk_rope_head_dim)}
     hd, G = cfg.resolved_head_dim, cfg.n_kv_heads
-    shape = lead + (batch, cap, G, hd)
-    return {"k": torch.zeros(shape, dtype=cm.cdtype(cfg), device=device),
-            "v": torch.zeros(shape, dtype=cm.cdtype(cfg), device=device)}
+    return {"k": zeros(G, hd), "v": zeros(G, hd)}
 
 
 def layer_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int, cap: int,
                      device="cpu", lead: Tuple[int, ...] = ()):
-    _unported(spec, cfg)
     if spec.mixer == "attn":
         return _attn_cache_init(cfg, batch, cap, device, lead)
     return mb.mamba_init_cache(cfg, batch, cm.cdtype(cfg), device, lead)
@@ -125,16 +137,25 @@ def init_cache(cfg: ModelConfig, batch: int, cap: int, device="cpu"):
 
 def block_decode(p: Params, x, cache, cfg: ModelConfig, spec: LayerSpec,
                  pos: int) -> Tuple[torch.Tensor, dict]:
-    """x: (B,1,D); pos: index of the new token. Writes its k/v (or, for a
-    Mamba layer, its conv window and SSM state) into ``cache`` in place
-    and returns (x, cache)."""
-    _unported(spec, cfg)
+    """x: (B,1,D); pos: index of the new token. Writes its k/v (its latent
+    for MLA, which then attends in the latent space: absorbed; for a Mamba
+    layer its conv window and SSM state) into ``cache`` in place and
+    returns (x, cache). A MoE FFN runs with ``no_drop``."""
     h = cm.apply_norm(p["pre_norm"], x, cfg.norm_kind, cfg.norm_eps)
     if spec.mixer == "attn":
-        cap = cache["k"].shape[1]
+        cap = next(iter(cache.values())).shape[1]
         if not 0 <= pos < cap:
             raise IndexError(f"decode position {pos} outside cache of {cap}")
         positions = torch.full((1,), pos, device=x.device)
+    if spec.mixer == "attn" and cfg.attn_kind == "mla":
+        ckv_new, kr_new = cm.mla_project_latent(p["attn"], h, cfg, positions)
+        cache["ckv"][:, pos:pos + 1] = ckv_new.to(cache["ckv"].dtype)
+        cache["kr"][:, pos:pos + 1] = kr_new.to(cache["kr"].dtype)
+        a = cm.mla_apply(p["attn"], h, cfg, causal=False,
+                         positions=positions,
+                         latent=(cache["ckv"], cache["kr"]),
+                         kv_valid_len=pos + 1, absorbed=True)
+    elif spec.mixer == "attn":
         k_new, v_new = cm.gqa_project_kv(p["attn"], h, cfg, positions)
         cache["k"][:, pos:pos + 1] = k_new.to(cache["k"].dtype)
         cache["v"][:, pos:pos + 1] = v_new.to(cache["v"].dtype)
@@ -147,22 +168,29 @@ def block_decode(p: Params, x, cache, cfg: ModelConfig, spec: LayerSpec,
         a, cache = mb.mamba_decode_step(p["mamba"], h, cache, cfg)
     if cfg.post_norm:
         a = cm.apply_norm(p["post_norm"], a, cfg.norm_kind, cfg.norm_eps)
-    return _ffn(p, x + a, cfg, spec), cache
+    x, _ = _ffn(p, x + a, cfg, spec, no_drop=True)
+    return x, cache
 
 
 def block_prefill(p: Params, x, cfg: ModelConfig, spec: LayerSpec,
                   positions, cap: int, cache: Optional[dict] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """Forward one block while building its decode cache. Returns
-    (x, aux, cache). ``cap`` >= S is the cache capacity; the k/v (or the
-    conv window and SSM state) go into ``cache`` in place when given (a
-    layer's view of the stacked cache), else into a new one."""
-    _unported(spec, cfg)
+    (x, aux, cache). ``cap`` >= S is the cache capacity; the k/v (the MLA
+    latent, or the conv window and SSM state) go into ``cache`` in place
+    when given (a layer's view of the stacked cache), else into a new one.
+    A MoE FFN runs with ``no_drop`` exactly when B*S <= 4096 (the
+    reference's threshold: no-drop capacity grows with the group)."""
     B, S, _ = x.shape
     h = cm.apply_norm(p["pre_norm"], x, cfg.norm_kind, cfg.norm_eps)
     if cache is None:
         cache = layer_cache_init(cfg, spec, B, cap, x.device)
-    if spec.mixer == "attn":
+    if spec.mixer == "attn" and cfg.attn_kind == "mla":
+        ckv, kr = cm.mla_project_latent(p["attn"], h, cfg, positions)
+        cache["ckv"][:, :S] = ckv.to(cache["ckv"].dtype)
+        cache["kr"][:, :S] = kr.to(cache["kr"].dtype)
+        a = cm.mla_apply(p["attn"], h, cfg, causal=True, positions=positions)
+    elif spec.mixer == "attn":
         k, v = cm.gqa_project_kv(p["attn"], h, cfg, positions)
         cache["k"][:, :S] = k.to(cache["k"].dtype)
         cache["v"][:, :S] = v.to(cache["v"].dtype)
@@ -176,8 +204,8 @@ def block_prefill(p: Params, x, cfg: ModelConfig, spec: LayerSpec,
         cache["ssm"].copy_(hT)
     if cfg.post_norm:
         a = cm.apply_norm(p["post_norm"], a, cfg.norm_kind, cfg.norm_eps)
-    x = _ffn(p, x + a, cfg, spec)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device), cache
+    x, aux = _ffn(p, x + a, cfg, spec, no_drop=B * S <= 4096)
+    return x, aux, cache
 
 
 # --------------------------------------------------------------------------

@@ -8,6 +8,8 @@ reference, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -m requires_cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -111,6 +113,38 @@ def test_flash_kernel_bf16_tile_edges(cuda, BHkv, R, Sq, Skv, D, causal,
     assert (got.float() - want.float()).abs().max().item() < BF16_TOL
 
 
+# head dim 192 (deepseek-v2-lite's MLA prefill: qk_nope 128 + qk_rope 64),
+# three 128-byte swizzle atoms a row: causal, windowed, GQA, softcap, off
+# the tile grid; (BHkv, R, Sq, Skv, causal, window, softcap, q_offset)
+D192_CASES = [
+    (4, 1, 256, 256, True, 0, 0.0, 0),
+    (2, 1, 200, 200, True, 64, 0.0, 0),
+    (2, 2, 130, 130, True, 40, 50.0, 0),
+    (2, 1, 77, 203, True, 0, 0.0, 126),
+    (3, 1, 96, 160, False, 0, 0.0, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BHkv,R,Sq,Skv,causal,window,cap,q_offset",
+                         D192_CASES)
+def test_flash_kernel_d192_vs_plain(cuda, dtype, BHkv, R, Sq, Skv, causal,
+                                    window, cap, q_offset):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q = _randn(gen, BHkv * R, Sq, 192, dtype=dtype)
+    k = _randn(gen, BHkv, Skv, 192, dtype=dtype)
+    v = _randn(gen, BHkv, Skv, 192, dtype=dtype)
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_offset,
+              kv_repeat=R)
+    before = fk.launches
+    got = fk.flash_attention_flat(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fk.launches == before + 1
+    want = attention_ref(q, k, v, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err < (F32_TOL if dtype == torch.float32 else BF16_TOL)
+
+
 def test_flash_kernel_rejects_unsupported_head_dim(cuda):
     gen = torch.Generator(device=cuda).manual_seed(1)
     q, k, v = (_randn(gen, 2, 16, 48) for _ in range(3))
@@ -168,6 +202,10 @@ SSD_CASES = [
     # exp(cum_i - cum_j) overflows above the diagonal: no NaN may leak
     (2, 256, 64, 128, 256, torch.float32, True),
     (2, 256, 64, 128, 256, torch.bfloat16, True),
+    # jamba's N = 16 at its P = 64: its chunk 256 in bf16 (the serving
+    # dtype), chunks of 64 in f32 (the reduced models' path)
+    (2, 512, 64, 16, 256, torch.bfloat16, False),
+    (2, 512, 64, 16, 64, torch.float32, False),
 ]
 
 
@@ -230,6 +268,7 @@ GROUPED_CASES = [
     (2, 512, 8, 2, 64, 128, 256, torch.bfloat16),
     (2, 200, 8, 2, 32, 64, 256, torch.bfloat16),
     (1, 256, 8, 2, 32, 32, 64, torch.float32),
+    (2, 512, 8, 1, 64, 16, 256, torch.bfloat16),    # jamba's N and P
 ]
 
 
@@ -357,6 +396,42 @@ def test_reduced_mamba2_serves_through_the_kernel(cuda):
     assert torch.equal(out, scan.generate({"tokens": toks}, steps=8))
     err = (eng.prefill({"tokens": toks})[0]
            - scan.prefill({"tokens": toks})[0]).abs().max().item()
+    assert err < 1e-4
+
+
+def _moe_cfg(arch):
+    """Reduced deepseek-v2-lite (MLA at its real 128 + 64 head dims, so K1
+    runs at D = 192) or jamba (attention at offset 4 of each 8-layer
+    period, Mamba-2 elsewhere, MoE at odd offsets) in f32 on the kernel
+    paths."""
+    cfg = registry.reduce_for_smoke(registry.get(arch))
+    if cfg.mla is not None:
+        cfg = cfg.replace(mla=dataclasses.replace(
+            cfg.mla, qk_nope_head_dim=128, qk_rope_head_dim=64,
+            v_head_dim=128))
+    return cfg.replace(dtype="float32", attn_impl="pallas",
+                       ssd_impl="pallas")
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "jamba-v0.1-52b"])
+def test_reduced_moe_models_serve_through_the_kernels(cuda, arch):
+    """One K1 launch per attention layer and one K2 launch per Mamba layer
+    in a generate; the tokens equal the naive/scan path's."""
+    cfg = _moe_cfg(arch)
+    params = api.init(streams.model_generator(0, cuda), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda,
+                         generator=streams.sampler_generator(1, cuda))
+    eng = ServeEngine(cfg, params, cap=48, device=cuda)
+    plain = ServeEngine(cfg.replace(attn_impl="naive", ssd_impl="scan"),
+                        params, cap=48, device=cuda)
+    mixers = [s.mixer for s in cfg.layer_specs()]
+    before = (fk.launches, sk.launches)
+    out = eng.generate({"tokens": toks}, steps=8)
+    assert (fk.launches - before[0], sk.launches - before[1]) == (
+        mixers.count("attn"), mixers.count("mamba"))
+    assert torch.equal(out, plain.generate({"tokens": toks}, steps=8))
+    err = (eng.prefill({"tokens": toks})[0]
+           - plain.prefill({"tokens": toks})[0]).abs().max().item()
     assert err < 1e-4
 
 

@@ -201,9 +201,7 @@ def test_split_model_surface(params, v):
     assert float(tl) == pytest.approx(float(rl), rel=1e-6)
 
 
-@pytest.mark.parametrize("arch,slice_", [("phi3.5-moe-42b-a6.6b", "slice 5"),
-                                         ("deepseek-v2-lite-16b", "slice 5"),
-                                         ("whisper-small", "slice 6")])
+@pytest.mark.parametrize("arch,slice_", [("whisper-small", "slice 6")])
 def test_unported_splits_raise(arch, slice_):
     with pytest.raises(NotImplementedError, match=slice_):
         tsplit.make_split_model(tregistry.get(arch), 1)

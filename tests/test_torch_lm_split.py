@@ -218,6 +218,53 @@ def test_lm_split_matches_reference(ref, arch, v):
     assert max(_leaf_errs([logits], [logits_j])) <= GRAD_TOL
 
 
+@pytest.mark.parametrize("v", [1, 2])
+def test_lm_split_moe_matches_reference(ref, v):
+    """Reduced deepseek-v2-lite (MLA, a dense first layer, MoE with shared
+    experts): each half's loss + aux and its gradients per leaf, device
+    then server, against the reference's split. At v = 1 the device holds
+    the dense layer (aux 0); at v = 2 one MoE layer too."""
+    js, ts, jdev, jsrv, tdev, tsrv, cfg = _split_pair(
+        ref, "deepseek-v2-lite-16b", v)
+    b = _batch(cfg, 2, seed=v)
+    cot = np.random.default_rng(10).standard_normal(
+        (2, S, cfg.d_model)).astype(np.float32)
+
+    def jdevice(d):
+        sm, aux = js.device_apply(d, _jb(b))
+        return jnp.sum(sm * cot) + aux, (sm, aux)
+
+    (_, (sm_j, aux_j)), gdev_j = jax.value_and_grad(
+        jdevice, has_aux=True)(jdev)
+    dev = _requires_grad(tdev)
+    sm, aux = ts.device_apply(dev, _tb(b))
+    assert max(_leaf_errs([sm, aux], [sm_j, aux_j])) <= GRAD_TOL
+    assert (float(aux.detach()) > 0) == (v > 1)
+    gdev = _grads((sm * torch.from_numpy(cot)).sum() + aux,
+                  tree.leaves(dev))
+    assert max(_leaf_errs(gdev, jax.tree.leaves(gdev_j))) <= GRAD_TOL
+
+    def jserver(s, x):
+        loss, aux_s = js.server_loss(s, x, _jb(b))
+        return loss + aux_s, aux_s
+
+    (total_j, aux_sj), (gsrv_j, gsm_j) = jax.value_and_grad(
+        jserver, argnums=(0, 1), has_aux=True)(jsrv, sm_j)
+    srv = _requires_grad(tsrv)
+    smt = sm.detach().requires_grad_()
+    loss, aux_s = ts.server_loss(srv, smt, _tb(b))
+    assert float(aux_s.detach()) > 0
+    assert abs(float(aux_s.detach()) - float(aux_sj)) <= 1e-6
+    assert float((loss + aux_s).detach()) == pytest.approx(float(total_j),
+                                                           rel=1e-6)
+    g = _grads(loss + aux_s, tree.leaves(srv) + [smt])
+    assert max(_leaf_errs(g[:-1], jax.tree.leaves(gsrv_j))) <= GRAD_TOL
+    assert max(_leaf_errs(g[-1:], [gsm_j])) <= GRAD_TOL
+    router = srv["stack"][0]["moe"]["router"]
+    i = next(i for i, t in enumerate(tree.leaves(srv)) if t is router)
+    assert float(g[i].abs().max()) > 0
+
+
 def test_lm_split_cfgs_follow_the_pattern_offset(ref):
     """gemma2 (local, global) at an odd cut: the server's prologue is the
     global layer, then whole periods; at an even cut, whole periods."""

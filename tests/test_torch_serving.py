@@ -251,10 +251,166 @@ def test_port_init_is_seeded_and_serves():
 
 
 def test_unported_families_raise():
-    for arch in ("jamba-v0.1-52b", "deepseek-v2-lite-16b", "whisper-small"):
-        cfg = registry.reduce_for_smoke(registry.get(arch))
-        with pytest.raises(NotImplementedError):
-            api.init(streams.model_generator(0, "cpu"), cfg)
+    cfg = registry.reduce_for_smoke(registry.get("whisper-small"))
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        api.init(streams.model_generator(0, "cpu"), cfg)
+
+
+# -- the MoE and MLA models ---------------------------------------------------
+# Reduced deepseek-v2-lite (MLA, a dense prologue layer, MoE with shared
+# experts), phi3.5-moe (GQA + MoE) and jamba (one attention layer and seven
+# Mamba-2 layers a period, MoE at odd offsets), float32, the kernel paths
+# selected on both sides (the reference's Pallas kernels in interpret mode,
+# the port's wrappers on their plain versions).
+
+MOE_ARCHS = ["deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b",
+             "jamba-v0.1-52b"]
+
+
+def _moe_cfgs(arch, dtype="float32"):
+    kw = dict(dtype=dtype, attn_impl="pallas", ssd_impl="pallas")
+    return (jregistry.reduce_for_smoke(jregistry.get(arch)).replace(**kw),
+            registry.reduce_for_smoke(registry.get(arch)).replace(**kw))
+
+
+@pytest.fixture(scope="module", params=MOE_ARCHS)
+def moe_model(request):
+    jcfg, cfg = _moe_cfgs(request.param)
+    jparams = japi.init(jax.random.PRNGKey(3), jcfg)
+    params = params_from_numpy(jax.device_get(jparams), "cpu")
+    return jcfg, cfg, jparams, params
+
+
+def test_moe_forward_matches_reference(moe_model):
+    jcfg, cfg, jparams, params = moe_model
+    toks = np.random.default_rng(14).integers(0, cfg.vocab_size, (2, S))
+    want, aux_j = japi.forward(jparams, {"tokens": jnp.asarray(toks)}, jcfg)
+    got, aux = api.forward(params, {"tokens": torch.from_numpy(toks)}, cfg)
+    assert _err(got, want) < 1e-4
+    assert float(aux) > 0 and abs(float(aux) - float(aux_j)) < 1e-6
+    last, _ = api.prefill(params, {"tokens": torch.from_numpy(toks)}, cfg)
+    assert _err(last, got[:, -1].numpy()) < 1e-5
+
+
+def _blocks(jparams, params, where, pos):
+    """One block's params in each package: the prologue's block ``pos`` or
+    period 0's block at pattern position ``pos``."""
+    if where == "prologue":
+        return jparams["prologue"][pos], params["prologue"][pos]
+    return _layer(jparams, pos), _tlayer(params, pos)
+
+
+# (arch, where, pattern position): every distinct block kind
+MOE_BLOCKS = [("deepseek-v2-lite-16b", "prologue", 0),   # MLA + dense
+              ("deepseek-v2-lite-16b", "stack", 0),      # MLA + MoE
+              ("phi3.5-moe-42b-a6.6b", "stack", 0),      # GQA + MoE
+              ("jamba-v0.1-52b", "stack", 0),            # Mamba + dense
+              ("jamba-v0.1-52b", "stack", 1),            # Mamba + MoE
+              ("jamba-v0.1-52b", "stack", 4)]            # GQA + dense
+
+
+@pytest.mark.parametrize("arch,where,pos", MOE_BLOCKS)
+def test_moe_block_prefill_and_decode(arch, where, pos):
+    """``block_prefill`` (the MLA latent written into the cache, the MoE's
+    aux) and three ``block_decode`` steps (absorbed MLA, ``no_drop`` MoE)
+    against the reference, cache and all."""
+    jcfg, cfg = _moe_cfgs(arch)
+    jparams = japi.init(jax.random.PRNGKey(4), jcfg)
+    params = params_from_numpy(jax.device_get(jparams), "cpu")
+    specs = cfg.prologue if where == "prologue" else cfg.pattern
+    spec, jspec = specs[pos], (jcfg.prologue if where == "prologue"
+                               else jcfg.pattern)[pos]
+    jp, tp = _blocks(jparams, params, where, pos)
+    cap = S + 3
+    x = _x(15, (2, S, cfg.d_model))
+    jx, jaux, jcache = jtfm.block_prefill(jp, jnp.asarray(x), jcfg, jspec,
+                                          jnp.arange(S), cap)
+    tx, aux, cache = tfm.block_prefill(tp, torch.from_numpy(x), cfg, spec,
+                                       torch.arange(S), cap)
+    assert _err(tx, jx) < TOL
+    assert abs(float(aux) - float(jaux)) < 1e-6
+    assert (float(aux) > 0) == (spec.ffn == "moe")
+    assert sorted(cache) == sorted(jcache)
+    for name in jcache:
+        assert _err(cache[name], jcache[name]) < TOL, name
+    for step in range(3):
+        x1 = _x(16 + step, (2, 1, cfg.d_model))
+        jx1, jcache = jtfm.block_decode(jp, jnp.asarray(x1), jcache, jcfg,
+                                        jspec, S + step)
+        tx1, cache = tfm.block_decode(tp, torch.from_numpy(x1), cache, cfg,
+                                      spec, S + step)
+        assert _err(tx1, jx1) < TOL
+        for name in jcache:
+            assert _err(cache[name], jcache[name]) < TOL, name
+
+
+def test_moe_block_prefill_drops_above_4096_tokens():
+    """B*S > 4096: the MoE FFN takes the capacity-bounded route, as the
+    reference's does (here with a capacity factor that drops choices),
+    and the result is not the no-drop one."""
+    jcfg, cfg = _moe_cfgs("deepseek-v2-lite-16b")
+    kw = dict(attn_impl="naive")
+    jcfg = jcfg.replace(moe=dataclasses.replace(jcfg.moe,
+                                                capacity_factor=0.5), **kw)
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=0.5),
+                      **kw)
+    jparams = japi.init(jax.random.PRNGKey(5), jcfg)
+    params = params_from_numpy(jax.device_get(jparams), "cpu")
+    spec, jspec = cfg.pattern[0], jcfg.pattern[0]
+    Sl = 2049                                        # B*S = 4098
+    x = _x(19, (2, Sl, cfg.d_model))
+    jx, jaux, _ = jtfm.block_prefill(_layer(jparams, 0), jnp.asarray(x),
+                                     jcfg, jspec, jnp.arange(Sl), Sl)
+    tx, aux, _ = tfm.block_prefill(_tlayer(params, 0), torch.from_numpy(x),
+                                   cfg, spec, torch.arange(Sl), Sl)
+    assert _err(tx, jx) < TOL and abs(float(aux) - float(jaux)) < 1e-6
+    # the same block below the threshold routes every choice
+    below, _, _ = tfm.block_prefill(_tlayer(params, 0),
+                                    torch.from_numpy(x[:, :2048]), cfg,
+                                    spec, torch.arange(2048), 2048)
+    assert float((below - tx[:, :2048]).abs().max()) > 1e-3
+
+
+def test_moe_generate_matches_reference_f32(moe_model):
+    jcfg, cfg, jparams, params = moe_model
+    steps = 6
+    toks = np.random.default_rng(20).integers(0, cfg.vocab_size, (2, S))
+    jeng = JServeEngine(jcfg, jparams, cap=S + steps)
+    eng = ServeEngine(cfg, params, cap=S + steps, device="cpu")
+    jlogits, _ = jeng.prefill({"tokens": jnp.asarray(toks, jnp.int32)})
+    logits, _ = eng.prefill({"tokens": torch.from_numpy(toks)})
+    assert _err(logits, jlogits) < 1e-4
+    want = np.asarray(jeng.generate({"tokens": jnp.asarray(toks, jnp.int32)},
+                                    steps=steps))
+    got = eng.generate({"tokens": torch.from_numpy(toks)}, steps=steps)
+    assert got.dtype == torch.int32 and got.shape == (2, steps)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_generate_matches_reference_bf16(arch):
+    jcfg, cfg = _moe_cfgs(arch, dtype="bfloat16")
+    jparams = japi.init(jax.random.PRNGKey(6), jcfg)
+    params = params_from_numpy(jax.device_get(jparams), "cpu")
+    toks = np.random.default_rng(21).integers(0, cfg.vocab_size, (2, S))
+    jlogits, _ = JServeEngine(jcfg, jparams, cap=S + 4).prefill(
+        {"tokens": jnp.asarray(toks, jnp.int32)})
+    eng = ServeEngine(cfg, params, cap=S + 4, device="cpu")
+    logits, _ = eng.prefill({"tokens": torch.from_numpy(toks)})
+    assert _err(logits, jlogits) < 0.15    # tests/test_kernels.py bf16 path
+    out = eng.generate({"tokens": torch.from_numpy(toks)}, steps=4)
+    assert out.shape == (2, 4)
+    assert int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_serve_launcher_serves_moe_archs(arch, capsys):
+    from repro_torch.launch import serve as launch_serve
+    launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                       "--param-dtype", "bfloat16", "--batch", "2",
+                       "--prompt-len", "12", "--steps", "3"])
+    out = capsys.readouterr().out
+    assert f"{arch}: 2x3 tokens" in out and "first row" in out
 
 
 def test_params_from_numpy_bf16_leaves():

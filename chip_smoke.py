@@ -17,7 +17,9 @@ failures is caught:
      S = 5120, D = 256, bf16, softcap 50, window 4096 and 0; at
      deepseek-v2-lite's MLA prefill, q = kv = (64, 4096, 192), and at
      phi3.5-moe's and jamba's, q (128, 4096, 128) over kv (32, 4096, 128),
-     causal, beside scaled_dot_product_attention (the same function);
+     causal; at whisper-small's encoder, q = kv = (192, 1500, 64), and
+     cross-attention, q (192, 64, 64) over kv (192, 1500, 64), non-causal;
+     beside scaled_dot_product_attention (the same function);
    - the SSD scan (K2) at jamba's prefill shape: x (4, 4096, 128, 64), B,
      C (4, 4096, 1, 16), chunk 256, bf16;
    - the SSD scan (K2) at the shape mamba2-2.7b prefill gives it: x
@@ -44,14 +46,22 @@ failures is caught:
    expected from the layer kinds; the prefill logits held to the plain
    path under a routing-flip rule (``moe_routing_check``); a reduced f32
    model of each whose tokens must match the naive path exactly.
-6. train the paper's LeNet with CPSL (Alg. 1) through ``CPSLTrainer`` at
+6. whisper_serve: a reduced f32 whisper at head dim 64 and 100 frames
+   whose tokens must match the naive path exactly, then whisper-small at
+   full width and depth (12 + 12 layers, d = 768, 12 heads of 64) through
+   ``serve``: 16 clips of 1500 seeded random frame embeddings, a 64-token
+   prompt, 16 greedy steps; K1 launched 12 + 2 * 12 = 36 times a
+   generate (the encoder's self-attention, the decoder's self- and
+   cross-attention at prefill), the prefill logits within 0.15 of the
+   chunked path's.
+7. train the paper's LeNet with CPSL (Alg. 1) through ``CPSLTrainer`` at
    the paper's configuration (30 devices, 6 clusters of 5, batch 16) on
    synthetic non-IID MNIST: SAA cut selection, then 8 rounds with Gibbs
    clustering, looped and fused. It launches no hand-written kernel (the
    reference's training path has no Pallas kernel); it checks fused
    against looped, the card against the CPU for one round, a fused round
    with no host sync, and that the loss falls.
-7. fleet: the quickstart's second half on the same data and cut,
+8. fleet: the quickstart's second half on the same data and cut,
    through ``FleetRunner.run`` (``CPSL.run_fleet``, the replica axis
    batched): the quickstart's 4-replica fleet; the README's 9-replica
    grid (seeds 0-2 x cluster sizes 3, 5, 10, padded to 10 x 10, 20
@@ -61,20 +71,28 @@ failures is caught:
    planner (``sim.batched``: SAA against the looped SAA, then 3 rounds of
    ``CPSLTrainer`` with ``resource_mgmt="gibbs-mc"``). It launches no
    hand-written kernel either.
-8. lm_train: split-LM CPSL training (``CPSL.run_round``) at full width
-   and depth, gemma2-2b (S = 5120) through K1 and mamba2-2.7b (S = 4096)
-   through K2, both bf16 with remat, 2 clusters of 2 devices, 2 rounds,
-   the cut from SAA; each kernel's launches must equal 2 * (K*v + layers
-   - v) a step and the other's 0, the step losses must fall, and one
-   block of each kind must give the plain path's parameter gradients
-   through the kernel's ``autograd.Function`` (f32 and bf16); then
-   ``launch/train.py --arch gemma2-2b --reduced`` through
-   ``CPSLTrainer``.
+9. lm_train: split-LM CPSL training (``CPSL.run_round``) at full width,
+   2 clusters of 2 devices, 2 rounds, bf16 compute with remat:
+   gemma2-2b (S = 5120) through K1 and mamba2-2.7b (S = 4096) through
+   K2, full depth, the cut from SAA; whisper-small at full depth with
+   the cut inside the encoder (SAA), 4 clips a device, a 448-token
+   decoder context; deepseek-v2-lite-16b with bf16 params at 14 of its
+   27 layers, v = 1, one 4096-token sequence a device. Each kernel's
+   launches must equal ``_lm_launches_per_step`` a step (2 * (K*v +
+   layers - v); whisper K*v + (12 - v) + 4 * 12) and the other's 0, the
+   step losses must be finite (and fall with f32 params), every
+   parameter leaf must be reached and, where some update is MOVE_ULPS
+   ulp or more of its value, move in the first step, and one block of
+   each kind must give the plain path's parameter gradients through the
+   kernel's ``autograd.Function`` (f32 and bf16; a MoE block's plain
+   path on the kernel path's routes); then ``launch/train.py --arch
+   gemma2-2b --reduced`` through ``CPSLTrainer``.
 
-Prints one ``{"moe_serve": {...}}`` line, one ``{"train": {...}}`` line,
-one ``{"fleet": {...}}`` line, one ``{"lm_train": {...}}`` line, one
-``{"kernels": [...]}`` line, the script's seconds and, last, the device
-line ``{"ok": true, "device": {...}}``.
+Prints one ``{"moe_serve": {...}}`` line, one ``{"whisper_serve":
+{...}}`` line, one ``{"train": {...}}`` line, one ``{"fleet": {...}}``
+line, one ``{"lm_train": {...}}`` line, one ``{"kernels": [...]}`` line,
+the script's seconds and, last, the device line ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -96,11 +114,19 @@ HBM_BYTES_PER_S = 3.35e12
 F32_TOL, BF16_TOL = 2e-5, 3e-2     # tests/test_kernels.py: kernel vs oracle
 SSD_F32_TOL, SSD_BF16_TOL = 5e-5, 5e-2   # tests/test_kernels.py: SSD
 LOGITS_TOL = 0.15                  # tests/test_kernels.py: bf16 model path
+# a bf16 output against its f32-computed plain version rounded to bf16:
+# the two round f32 values that differ far less than an ulp, so they
+# differ by at most one ulp of the element, and ulp(x) <= 2^-7 |x| in
+# bf16. Where the outputs are small (non-causal attention over many keys
+# averages v to ~0.04), BF16_TOL would pass a shift of several percent.
+BF16_OUT_ULP = 2.0 ** -7
 
 BATCH, PROMPT, STEPS = 4, 5120, 16
 MAMBA_PROMPT = 8192                # 32 chunks of 256
 MOE_PROMPT = 4096                  # B*S = 16384 > 4096: the MoE prefill
                                    # drops at capacity, decode is no_drop
+WHISPER_BATCH, WHISPER_PROMPT = 16, 64   # 16 clips of 1500 frames; a
+                                   # 64-token prompt + STEPS < 448 positions
 
 
 def log(msg: str):
@@ -288,51 +314,111 @@ FLASH_MOE_SHAPES = [
 ]
 
 
-def flash_moe_shapes() -> list:
-    """K1 at the MoE models' prefill shapes (batch BATCH, MOE_PROMPT
-    tokens, bf16, causal, no softcap, scale 1 / sqrt(D)): error, kernel,
-    plain and library times and the bound. Here
-    ``scaled_dot_product_attention`` computes exactly the same function,
-    so library_ms is a true yardstick; its error is printed too. The port
-    never calls it."""
+def _flash_row(gen, label: str, batch: int, G: int, R: int, Sq: int,
+               Skv: int, D: int, causal: bool, reps: int) -> dict:
+    """K1 in bf16 (no softcap, no window, scale 1 / sqrt(D)) on seeded
+    q (batch*G*R, Sq, D), k = v (batch*G, Skv, D): its error against the
+    plain version, within BF16_TOL and one ulp of the largest output
+    (``BF16_OUT_ULP``), kernel, plain and library times over ``reps``
+    launches and the bound. ``scaled_dot_product_attention`` computes
+    exactly the same function here, so library_ms is a true yardstick;
+    its error is kept too. The port never calls it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_flat
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    q, k, v = _flash_inputs(gen, batch * G, R, Sq, Skv, D, torch.bfloat16)
+    kw = dict(causal=causal, window=0, softcap=0.0, q_offset=0, kv_repeat=R)
+    got = flash_attention_flat(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = min(BF16_TOL, BF16_OUT_ULP * want.float().abs().max().item())
+    if not err <= tol:
+        raise AssertionError(f"flash_attention {label}: max abs err {err} "
+                             f"> {tol}")
+    q4 = q.view(batch, G * R, Sq, D)
+    k4, v4 = k.view(batch, G, Skv, D), v.view(batch, G, Skv, D)
+    lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+        q4, k4, v4, is_causal=causal, enable_gqa=R > 1)
+    lib_err = (lib().reshape(q.shape).float() - want.float()
+               ).abs().max().item()
+    del want
+    bound_ms, bound_by = _attention_bound_ms(
+        batch * G * R, batch * G, Sq, Skv, D, torch.bfloat16, causal, 0)
+    row = {"label": label, "shape": f"q ({batch * G * R},{Sq},{D}) "
+           f"kv ({batch * G},{Skv},{D}) bf16 "
+           + ("causal" if causal else "non-causal"),
+           "max_abs_err": err, "tol": tol,
+           "ms": time_ms(lambda: flash_attention_flat(q, k, v, **kw), reps),
+           "plain_ms": time_ms(lambda: attention_ref(q, k, v, **kw), 2),
+           "library_ms": time_ms(lib, reps), "library_max_abs_err": lib_err,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return row
+
+
+def flash_moe_shapes() -> list:
+    """K1 at the MoE models' prefill shapes (batch BATCH, MOE_PROMPT
+    tokens, bf16, causal), ``_flash_row`` each."""
+    import torch
     gen = torch.Generator(device="cuda").manual_seed(5)
-    S, rows = MOE_PROMPT, []
+    rows = []
     for label, G, R, D in FLASH_MOE_SHAPES:
-        q, k, v = _flash_inputs(gen, BATCH * G, R, S, S, D, torch.bfloat16)
-        kw = dict(causal=True, window=0, softcap=0.0, q_offset=0,
-                  kv_repeat=R)
-        got = flash_attention_flat(q, k, v, **kw)
-        torch.cuda.synchronize()
-        want = attention_ref(q, k, v, **kw)
-        err = (got.float() - want.float()).abs().max().item()
-        if not err < BF16_TOL:
-            raise AssertionError(f"flash_attention {label}: max abs err "
-                                 f"{err}")
-        q4 = q.view(BATCH, G * R, S, D)
-        k4, v4 = k.view(BATCH, G, S, D), v.view(BATCH, G, S, D)
-        lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
-            q4, k4, v4, is_causal=True, enable_gqa=R > 1)
-        lib_err = (lib().reshape(q.shape).float() - want.float()
-                   ).abs().max().item()
-        del want
-        bound_ms, bound_by = _attention_bound_ms(
-            BATCH * G * R, BATCH * G, S, S, D, torch.bfloat16, True, 0)
-        row = {"label": label, "shape": f"q ({BATCH * G * R},{S},{D}) "
-               f"kv ({BATCH * G},{S},{D}) bf16 causal",
-               "max_abs_err": err,
-               "ms": time_ms(lambda: flash_attention_flat(q, k, v, **kw), 10),
-               "plain_ms": time_ms(lambda: attention_ref(q, k, v, **kw), 2),
-               "library_ms": time_ms(lib, 10), "library_max_abs_err": lib_err,
-               "bound_ms": bound_ms, "bound_by": bound_by}
-        log("flash_attention moe shape: " + json.dumps(row))
-        rows.append(row)
-        del q, k, v, got
-        torch.cuda.empty_cache()
+        rows.append(_flash_row(gen, label, BATCH, G, R, MOE_PROMPT,
+                               MOE_PROMPT, D, True, 10))
+        log("flash_attention moe shape: " + json.dumps(rows[-1]))
+    return rows
+
+
+# K1 at whisper-small's shapes (batch WHISPER_BATCH, 12 heads of 64):
+# (label, query rows, key rows), non-causal
+FLASH_WHISPER_SHAPES = [
+    ("whisper-small encoder self-attention", 1500, 1500),
+    ("whisper-small cross-attention, 64-token prompt", 64, 1500),
+]
+
+
+def _ragged_mask_probe(gen, BH: int, Sq: int, Skv: int, D: int) -> dict:
+    """K1 in bf16, non-causal, on q ~ N(2, 1) and k ~ N(-2, 1): every
+    real score is ~ -32, so a key past Skv in the last (ragged) key tile
+    that is not masked (score 0 on zero-filled rows) would take nearly
+    all the weight and move each output by its own size. Within
+    BF16_TOL and one ulp of the largest output."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_flat
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    q, k, v = _flash_inputs(gen, BH, 1, Sq, Skv, D, torch.float32)
+    q, k, v = (q + 2).bfloat16(), (k - 2).bfloat16(), v.bfloat16()
+    kw = dict(causal=False, window=0, softcap=0.0, q_offset=0, kv_repeat=1)
+    got = flash_attention_flat(q, k, v, **kw)
+    want = attention_ref(q, k, v, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = min(BF16_TOL, BF16_OUT_ULP * want.float().abs().max().item())
+    if not err <= tol:
+        raise AssertionError(f"flash_attention ragged mask probe Sq={Sq} "
+                             f"Skv={Skv}: max abs err {err} > {tol}")
+    return {"mask_probe_err": err, "mask_probe_tol": tol}
+
+
+def flash_whisper_shapes() -> list:
+    """K1 at whisper-small's two prefill shapes, non-causal, D = 64,
+    ``_flash_row`` each: the encoder's self-attention, q = k = v (16*12,
+    1500, 64), ragged against the 64-row and 64-key tiles; and the
+    decoder's cross-attention, q (16*12, 64, 64) over kv (16*12, 1500,
+    64). Each row also holds ``_ragged_mask_probe`` at its Sq and Skv
+    over one clip's 12 heads."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    for label, Sq, Skv in FLASH_WHISPER_SHAPES:
+        rows.append(_flash_row(gen, label, WHISPER_BATCH, 12, 1, Sq, Skv, 64,
+                               False, 20))
+        rows[-1].update(_ragged_mask_probe(gen, 12, Sq, Skv, 64))
+        log("flash_attention whisper shape: " + json.dumps(rows[-1]))
     return rows
 
 
@@ -611,13 +697,12 @@ def small_path_check(cfg, plain_cfg, label: str):
     from repro_torch.models import api
     from repro_torch.serving.engine import ServeEngine
     params = api.init(streams.model_generator(0, "cuda"), cfg)
-    toks = torch.randint(0, cfg.vocab_size, (2, 40), device="cuda",
-                         generator=streams.sampler_generator(1, "cuda"))
+    batch = _serve_batch(cfg, 2, 40)
     outs, logits = [], []
     for c in (cfg, plain_cfg):
         eng = ServeEngine(c, params, cap=48, device="cuda")
-        logits.append(eng.prefill({"tokens": toks})[0])
-        outs.append(eng.generate({"tokens": toks}, steps=8))
+        logits.append(eng.prefill(batch)[0])
+        outs.append(eng.generate(batch, steps=8))
     err = (logits[0] - logits[1]).abs().max().item()
     if not (err < 1e-4 and torch.equal(outs[0], outs[1])):
         raise AssertionError(f"reduced {label} f32: kernel vs plain logits "
@@ -625,6 +710,23 @@ def small_path_check(cfg, plain_cfg, label: str):
                              f"{torch.equal(outs[0], outs[1])}")
     log(f"reduced {label} f32 on the card: kernel vs plain logits max abs "
         f"err {err:.3g}, 8 greedy tokens identical")
+
+
+def _serve_batch(cfg, batch_size: int, prompt: int) -> dict:
+    """Seeded prompt tokens on the card; for an enc-dec model also seeded
+    random frame embeddings (batch_size, enc_seq, d_model) in the compute
+    dtype (the audio frontend is a stub)."""
+    import torch
+    from repro_torch import streams
+    gen = streams.sampler_generator(1, "cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (batch_size, prompt), device="cuda",
+                                     generator=gen)}
+    if cfg.encdec:
+        batch["frames"] = torch.randn(
+            (batch_size, cfg.enc_seq, cfg.d_model), device="cuda",
+            generator=gen).to(getattr(torch, cfg.dtype))
+    return batch
 
 
 def _kernel_modules() -> dict:
@@ -635,16 +737,24 @@ def _kernel_modules() -> dict:
 
 def _expected_launches(cfg) -> dict:
     """Each kernel's launches in one generate: K1 once per attention layer
-    and K2 once per Mamba layer of the prefill; decode launches neither."""
+    and K2 once per Mamba layer of the prefill; decode launches neither.
+    An enc-dec model's prefill runs K1 once per encoder layer and twice
+    per decoder layer (self- and cross-attention)."""
+    if cfg.encdec:
+        n_dec = cfg.n_layers - cfg.n_enc_layers
+        return {"flash_attention": cfg.n_enc_layers + 2 * n_dec, "ssd": 0}
     mixers = [s.mixer for s in cfg.layer_specs()]
     return {"flash_attention": mixers.count("attn"),
             "ssd": mixers.count("mamba")}
 
 
-def serve(cfg, plain_cfg, prompt: int, moe: bool = False) -> dict:
-    """``cfg`` at full width through ``ServeEngine.generate`` (batch BATCH,
-    ``prompt`` tokens, STEPS greedy steps), with every kernel's launch count
-    set to 0 just before that run and read just after; each kernel must
+def serve(cfg, plain_cfg, prompt: int, moe: bool = False,
+          batch_size: int = BATCH) -> dict:
+    """``cfg`` at full width through ``ServeEngine.generate``
+    (``batch_size`` requests of ``prompt`` tokens, for an enc-dec model
+    with seeded random frames, STEPS greedy steps), with every kernel's
+    launch count set to 0 just before that run and read just after; each
+    kernel must
     have been launched once per layer of its kind
     (``_expected_launches``). Then a prefill and decode breakdown, a
     profile of one call each (``moe``: one prefill, the card alone), and
@@ -664,9 +774,7 @@ def serve(cfg, plain_cfg, prompt: int, moe: bool = False) -> dict:
         f"{cfg.n_layers} layers) in {time.perf_counter() - t0:.2f} s")
     cap = prompt + STEPS
     eng = ServeEngine(cfg, params, cap=cap, device="cuda")
-    batch = {"tokens": torch.randint(
-        0, cfg.vocab_size, (BATCH, prompt), device="cuda",
-        generator=streams.sampler_generator(1, "cuda"))}
+    batch = _serve_batch(cfg, batch_size, prompt)
     eng.generate(batch, steps=2)                      # warm-up
     torch.cuda.synchronize()
 
@@ -685,7 +793,7 @@ def serve(cfg, plain_cfg, prompt: int, moe: bool = False) -> dict:
         raise AssertionError(f"{cfg.name}: kernel launches {launches} in one "
                              f"generate; expected {_expected_launches(cfg)} "
                              f"(one per layer of its kind in the prefill)")
-    if out.shape != (BATCH, STEPS) or out.dtype != torch.int32 or not (
+    if out.shape != (batch_size, STEPS) or out.dtype != torch.int32 or not (
             0 <= int(out.min()) and int(out.max()) < cfg.vocab_size):
         raise AssertionError(f"bad generate output {out.shape} {out.dtype}")
 
@@ -727,10 +835,10 @@ def serve(cfg, plain_cfg, prompt: int, moe: bool = False) -> dict:
     result = {
         "model": cfg.name, "n_layers": cfg.n_layers,
         "param_dtype": cfg.param_dtype, "params_b": n_params / 1e9,
-        "params_gb": param_gb, "batch": BATCH, "prompt": prompt,
+        "params_gb": param_gb, "batch": batch_size, "prompt": prompt,
         "steps": STEPS, "cap": cap, "launches_per_generate": launches,
         "generate_s": generate_s,
-        "tokens_per_s": BATCH * STEPS / generate_s,
+        "tokens_per_s": batch_size * STEPS / generate_s,
         "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
         "plain_prefill_ms": plain_prefill_ms,
         "logits_max_abs_err_vs_plain": err, "peak_memory_gb": peak_gb,
@@ -948,7 +1056,32 @@ def moe_serve_phase() -> dict:
 
 
 # --------------------------------------------------------------------------
-# 6. train: the paper's LeNet with CPSL (Alg. 1) through CPSLTrainer
+# 6. whisper_serve: whisper-small through K1 at head dim 64
+# --------------------------------------------------------------------------
+
+def whisper_serve_phase() -> dict:
+    """A reduced whisper in f32 at head dim 64 and 100 frames (ragged
+    against K1's tiles) whose tokens must match the naive path's, then
+    whisper-small at full width and depth (12 + 12 layers, d = 768, f32
+    params, bf16 compute) through ``serve``: WHISPER_BATCH clips of 1500
+    seeded random frame embeddings, a WHISPER_PROMPT-token prompt and
+    STEPS greedy steps; K1 launched 12 + 2 * 12 = 36 times a generate,
+    the prefill logits within LOGITS_TOL of the chunked path's."""
+    from repro_torch.configs import registry
+    t0 = time.perf_counter()
+    small = registry.reduce_for_smoke(registry.get("whisper-small")).replace(
+        dtype="float32", attn_impl="pallas", head_dim=64, enc_seq=100)
+    small_path_check(small, small.replace(attn_impl="naive"), "whisper")
+    cfg = registry.get("whisper-small").replace(attn_impl="pallas")
+    out = serve(cfg, cfg.replace(attn_impl="chunked"), WHISPER_PROMPT,
+                batch_size=WHISPER_BATCH)
+    out["enc_seq"] = cfg.enc_seq
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+# --------------------------------------------------------------------------
+# 7. train: the paper's LeNet with CPSL (Alg. 1) through CPSLTrainer
 # --------------------------------------------------------------------------
 
 TRAIN_ROUNDS = 8
@@ -1119,7 +1252,7 @@ def train_phase() -> dict:
 
 
 # --------------------------------------------------------------------------
-# 7. fleet: FleetRunner over CPSL.run_fleet, and the batched planner
+# 8. fleet: FleetRunner over CPSL.run_fleet, and the batched planner
 # --------------------------------------------------------------------------
 
 # The grids (FleetConfig fields). QUICKSTART_FLEET is examples/quickstart.py's
@@ -1479,22 +1612,41 @@ def fleet_phase(train: dict, smi: str) -> dict:
 
 
 # --------------------------------------------------------------------------
-# 8. lm_train: split-LM CPSL training, K1 (gemma2-2b) and K2 (mamba2-2.7b)
+# 9. lm_train: split-LM CPSL training through K1 and K2
 # --------------------------------------------------------------------------
 
-# N = 4 devices in M = 2 clusters of K = 2, B = 2 sequences a device, L = 1,
-# 2 rounds (4 cluster steps); the cut from SAA over cuts 1..6 of the full
-# architecture's profile with examples/cpsl_llm_training.py's network.
-# Against the registry's train_4k cell (global batch 256) a cluster step
-# takes 4 sequences. SGD at CPSLConfig's lrs (0.05 device, 0.25 server).
+# N = 4 devices in M = 2 clusters of K = 2, L = 1, 2 rounds (4 cluster
+# steps); SGD at CPSLConfig's lrs (0.05 device, 0.25 server). Each model
+# below: its kernel, the kernel path's and the plain path's cfg, the
+# sequence, the sequences (clips) a device, and where given the cut (else
+# SAA over cuts 1..6, or over the encoder's cuts, of the full
+# architecture's profile with examples/cpsl_llm_training.py's network) and
+# changes to the config. Against the registry's train_4k cell (global
+# batch 256) a cluster step takes K * B sequences.
 LM_M, LM_K, LM_B, LM_ROUNDS = 2, 2, 2, 2
 LM_LOSS_CHUNK = 512       # the CE never holds (B*S, 256000) f32 logits
+# deepseek-v2-lite-16b trains at full width with bf16 params, cut to 14 of
+# 27 layers (the dense one and 13 MoE): SGD's functional update holds the
+# old params, their gradients and the new params at once, ~3 x 16.8 GB,
+# plus f32 transients of the largest stacked leaf (13 layers' experts,
+# 2.4 B elements); the 27 layers would need ~134 GB.
+DEEPSEEK_TRAIN_LAYERS = 14
 LM_MODELS = {
-    # arch: (seq, kernel module, the kernel path's cfg, the plain path's)
-    "gemma2-2b": (PROMPT, "flash_attention", {"attn_impl": "pallas"},
-                  {"attn_impl": "chunked"}),
-    "mamba2-2.7b": (4096, "ssd", {"ssd_impl": "pallas"},
-                    {"ssd_impl": "chunked"}),
+    "gemma2-2b": dict(kernel="flash_attention", impl={"attn_impl": "pallas"},
+                      plain={"attn_impl": "chunked"}, seq=PROMPT, batch=LM_B),
+    "mamba2-2.7b": dict(kernel="ssd", impl={"ssd_impl": "pallas"},
+                        plain={"ssd_impl": "chunked"}, seq=4096, batch=LM_B),
+    # the cut inside the encoder; seq is the decoder's context (448
+    # positions), the encoder reads 1500 frames a clip
+    "whisper-small": dict(kernel="flash_attention",
+                          impl={"attn_impl": "pallas"},
+                          plain={"attn_impl": "chunked"}, seq=448, batch=4),
+    # slice 5b: MLA through K1 at D = 192, MoE layers, bf16 params
+    "deepseek-v2-lite-16b": dict(
+        kernel="flash_attention", impl={"attn_impl": "pallas"},
+        plain={"attn_impl": "chunked"}, seq=4096, batch=1, cut=1,
+        cfg={"param_dtype": "bfloat16",
+             "n_layers": DEEPSEEK_TRAIN_LAYERS}),
 }
 # kernel path vs plain path, per-leaf parameter gradients of one block at
 # full width, err / max(1, max|g|): tests/test_kernels.py's tolerances
@@ -1509,12 +1661,48 @@ def _lm_launches_per_step(cfg, kernel: str, v: int) -> int:
     of the kernel's kind runs forward once and again in backward (the
     checkpoint's recompute; the Function's backward itself is plain
     torch), the device side once per client: 2 * (K*v + n_layers - v)
-    when every layer is of that kind."""
+    when every layer is of that kind. An enc-dec split runs its encoder
+    blocks without remat (the reference's plain scan) and its decoder's
+    self- and cross-attention twice: K*v + (n_enc - v) + 4 * n_dec."""
+    if cfg.encdec:
+        if kernel != "flash_attention":
+            return 0
+        n_enc = cfg.n_enc_layers
+        return LM_K * v + (n_enc - v) + 4 * (cfg.n_layers - n_enc)
     kind = "attn" if kernel == "flash_attention" else "mamba"
     specs = cfg.layer_specs()
     dev = sum(s.mixer == kind for s in specs[:v])
     srv = sum(s.mixer == kind for s in specs[v:])
     return 2 * (LM_K * dev + srv)
+
+
+def _grad_blocks(cfg, seq: int, dtype: str) -> list:
+    """(label, init(generator, cfg), apply(params, x, cfg, positions) -> y,
+    x's shape) for one block of each kind of the model: whisper's encoder
+    block (1500 frames) and decoder block (``seq`` tokens over a fixed
+    random memory of 1500 frames: causal self-attention and non-causal
+    cross-attention at Sq != Skv), else one block per layer spec."""
+    import torch
+    from repro_torch import streams
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models import whisper as whp
+    d = cfg.d_model
+    if cfg.encdec:
+        memory = torch.randn((1, cfg.enc_seq, d), device="cuda",
+                             generator=streams.sampler_generator(5, "cuda")
+                             ).to(getattr(torch, dtype))
+        return [("encoder", whp._enc_block_init,
+                 lambda p, x, c, pos: whp.enc_block_apply(p, x, c),
+                 (1, cfg.enc_seq, d)),
+                ("decoder", whp._dec_block_init,
+                 lambda p, x, c, pos: whp.dec_block_apply(p, x, memory, c,
+                                                          pos),
+                 (1, seq, d))]
+    return [(f"{s.mixer}_{s.ffn}_window{s.window}",
+             lambda g, c, s=s: tfm.block_init(g, c, s),
+             lambda p, x, c, pos, s=s: tfm.block_apply(p, x, c, s, pos)[0],
+             (1, seq, d))
+            for s in dict.fromkeys(cfg.layer_specs())]
 
 
 def _lm_grad_check(cfg, kernel: str, impl: dict, plain: dict,
@@ -1523,30 +1711,30 @@ def _lm_grad_check(cfg, kernel: str, impl: dict, plain: dict,
     parameter gradients through the kernel path against the plain path,
     in float32 and in bfloat16 compute (f32 params), within LM_GRAD_TOL;
     the kernel must launch on the kernel path, no leaf's gradient may be
-    all zero."""
+    all zero. A MoE block's plain path replays the kernel path's routes
+    (``_moe_routes``), so a routing flip is not read as a gradient
+    error."""
     import torch
     from repro_torch import streams, tree
-    from repro_torch.models import transformer as tfm
     modules = _kernel_modules()
     out = {}
-    for spec in dict.fromkeys(cfg.layer_specs()):
-        label = f"{spec.mixer}_window{spec.window}"
-        for dtype in ("float32", "bfloat16"):
-            c = cfg.replace(dtype=dtype)
-            params = tfm.block_init(streams.model_generator(3, "cuda"), c,
-                                    spec)
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.replace(dtype=dtype)
+        for label, init, apply, shape in _grad_blocks(c, seq, dtype):
+            params = init(streams.model_generator(3, "cuda"), c)
             gen = streams.sampler_generator(4, "cuda")
-            x = torch.randn((1, seq, c.d_model), device="cuda",
+            x = torch.randn(shape, device="cuda",
                             generator=gen).to(getattr(torch, dtype))
-            w = torch.randn((1, seq, c.d_model), device="cuda",
-                            generator=gen)
-            pos = torch.arange(seq, device="cuda")
-            grads = []
+            w = torch.randn(shape, device="cuda", generator=gen)
+            pos = torch.arange(shape[1], device="cuda")
+            grads, routes = [], []
             for kw in (impl, plain):
                 p = tree.map(lambda t: t.detach().requires_grad_(), params)
                 before = modules[kernel].launches
-                y, _ = tfm.block_apply(p, x, c.replace(**kw), spec, pos)
-                loss = (y.float() * w).sum() / seq
+                with _moe_routes([] if kw is plain else routes,
+                                 replay=routes if kw is plain else None):
+                    y = apply(p, x, c.replace(**kw), pos)
+                loss = (y.float() * w).sum() / shape[1]
                 grads.append(torch.autograd.grad(loss, tree.leaves(p)))
                 launched = modules[kernel].launches - before
                 if (launched > 0) != (kw is impl):
@@ -1563,62 +1751,211 @@ def _lm_grad_check(cfg, kernel: str, impl: dict, plain: dict,
                 raise AssertionError(f"{cfg.name} {label} {dtype}: kernel "
                                      f"vs plain grads {err} (limit {tol}); "
                                      f"all-zero leaves {zero}")
-            out[f"{label}_{dtype}"] = {"max_rel_err": err, "tol": tol}
-            del params, grads, x, w
-    torch.cuda.empty_cache()
+            out[f"{label}_{dtype}"] = {"max_rel_err": err, "tol": tol,
+                                       "moe_layers_replayed": len(routes)}
+            del params, grads, x, w, routes
+            torch.cuda.empty_cache()
     return out
 
 
-def _lm_kernel_bwd(cfg, kernel: str, seq: int) -> dict:
-    """At the server's shape (K*B sequences) in bf16: one kernel launch
+def _lm_kernel_calls(cfg, kernel: str, v: int, seq: int,
+                     batch: int) -> list:
+    """The kernel's ``autograd.Function`` backwards in one CPSL step, by
+    shape: (label, batch, Sq, Skv, causal, window, calls). Each layer of
+    the kernel's kind runs one backward, the device side at B sequences
+    once per client, the server side at K*B; an enc-dec model's encoder
+    reads enc_seq frames (non-causal), its decoder runs causal
+    self-attention over ``seq`` tokens and cross-attention from them over
+    the frames."""
+    Bs = LM_K * batch
+    if cfg.encdec:
+        n_enc, n_dec = cfg.n_enc_layers, cfg.n_layers - cfg.n_enc_layers
+        E = cfg.enc_seq
+        return [("encoder, device", batch, E, E, False, 0, LM_K * v),
+                ("encoder, server", Bs, E, E, False, 0, n_enc - v),
+                ("decoder self", Bs, seq, seq, True, 0, n_dec),
+                ("decoder cross", Bs, seq, E, False, 0, n_dec)]
+    kind = "attn" if kernel == "flash_attention" else "mamba"
+    calls = {}
+    for i, s in enumerate(cfg.layer_specs()):
+        if s.mixer == kind:
+            where = ("device", batch, LM_K) if i < v else ("server", Bs, 1)
+            key = (where[0], where[1], s.window if kind == "attn" else 0)
+            calls[key] = calls.get(key, 0) + where[2]
+    return [(f"{w}" + (f", window {win}" if win else ""), b, seq, seq,
+             True, win, n) for (w, b, win), n in calls.items()]
+
+
+def _lm_kernel_bwd(cfg, kernel: str, v: int, seq: int, batch: int) -> dict:
+    """In bf16 at each shape of ``_lm_kernel_calls``: one kernel launch
     (the Function's forward) against the Function's backward (the plain
-    recomputation and its gradient), CUDA events."""
+    recomputation and its gradient), CUDA events, and the backwards' sum
+    over a step, each shape's time by its calls. An MLA model attends as
+    H kv heads of one query head at D = dn + dr."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(5)
-    Bs = LM_K * LM_B
 
     def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
         return (scale * torch.randn(shape, device="cuda", generator=gen)
                 ).to(dtype)
 
-    if kernel == "flash_attention":
-        from repro_torch.kernels.flash_attention import ops
-        G, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-        R = cfg.n_heads // G
-        ins = [rnd(Bs, seq, G, R, hd), rnd(Bs, seq, G, hd),
-               rnd(Bs, seq, G, hd)]
-        args = (True, cfg.pattern[0].window, cfg.attn_softcap, 0)
-        shape = f"q ({Bs},{seq},{G},{R},{hd}) bf16, window " \
-                f"{cfg.pattern[0].window}"
+    shapes = []
+    for label, Bs, Sq, Skv, causal, window, calls in _lm_kernel_calls(
+            cfg, kernel, v, seq, batch):
+        if kernel == "flash_attention":
+            from repro_torch.kernels.flash_attention import ops
+            if cfg.attn_kind == "mla":
+                G, R = cfg.n_heads, 1
+                hd = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+            else:
+                G, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+                R = cfg.n_heads // G
+            ins = [rnd(Bs, Sq, G, R, hd), rnd(Bs, Skv, G, hd),
+                   rnd(Bs, Skv, G, hd)]
+            args = (causal, window, cfg.attn_softcap, 0)
+            shape = (f"q ({Bs},{Sq},{G},{R},{hd}) kv ({Bs},{Skv},{G},{hd})"
+                     f" bf16, {'causal' if causal else 'non-causal'}, "
+                     f"window {window}")
 
-        def fwd():
-            return ops.flash_attention(*ins, *args)
-    else:
-        from repro_torch.kernels.ssd import ops
-        from repro_torch.models.mamba2 import mamba_dims
-        _, H, _ = mamba_dims(cfg)
-        s = cfg.ssm
-        ins = [rnd(Bs, seq, H, s.headdim),
-               rnd(Bs, seq, H, dtype=torch.float32, scale=0.1).abs(),
-               -torch.rand(H, device="cuda", generator=gen) - 0.5,
-               rnd(Bs, seq, s.ngroups, s.d_state, scale=0.3),
-               rnd(Bs, seq, s.ngroups, s.d_state, scale=0.3)]
-        shape = f"x ({Bs},{seq},{H},{s.headdim}) bf16, B = C " \
-                f"({Bs},{seq},{s.ngroups},{s.d_state})"
+            def fwd(ins=ins, args=args):
+                return ops.flash_attention(*ins, *args)
+        else:
+            from repro_torch.kernels.ssd import ops
+            from repro_torch.models.mamba2 import mamba_dims
+            _, H, _ = mamba_dims(cfg)
+            s = cfg.ssm
+            ins = [rnd(Bs, seq, H, s.headdim),
+                   rnd(Bs, seq, H, dtype=torch.float32, scale=0.1).abs(),
+                   -torch.rand(H, device="cuda", generator=gen) - 0.5,
+                   rnd(Bs, seq, s.ngroups, s.d_state, scale=0.3),
+                   rnd(Bs, seq, s.ngroups, s.d_state, scale=0.3)]
+            shape = f"x ({Bs},{seq},{H},{s.headdim}) bf16, B = C " \
+                    f"({Bs},{seq},{s.ngroups},{s.d_state})"
 
-        def fwd():
-            return ops.ssd(*ins, chunk=s.chunk_size)[0]
-    with torch.no_grad():
-        fwd_ms = time_ms(fwd, 3)
-    ins = [t.requires_grad_() for t in ins]
-    out = fwd()
-    g = torch.randn_like(out)
-    bwd_ms = time_ms(lambda: torch.autograd.grad(out, ins, g,
-                                                 retain_graph=True), 2)
-    del out, ins
+            def fwd(ins=ins):
+                return ops.ssd(*ins, chunk=s.chunk_size)[0]
+        with torch.no_grad():
+            fwd_ms = time_ms(fwd, 3)
+        ins[:] = [t.requires_grad_() for t in ins]
+        out = fwd()
+        g = torch.randn_like(out)
+        bwd_ms = time_ms(lambda: torch.autograd.grad(out, ins, g,
+                                                     retain_graph=True), 2)
+        del out, ins, g
+        torch.cuda.empty_cache()
+        shapes.append({"label": label, "shape": shape, "calls": calls,
+                       "kernel_fwd_ms": fwd_ms, "function_bwd_ms": bwd_ms})
+    return {"shapes": shapes, "function_bwd_ms_per_step": sum(
+        r["calls"] * r["function_bwd_ms"] for r in shapes)}
+
+
+def _lm_batches(cfg, seq: int, batch: int) -> dict:
+    """Seeded ``LMClusterData`` batches of Markov tokens on the card, (K,
+    B, seq) leaves, one a (round, cluster); an enc-dec model's also carry
+    seeded random frames (K, B, enc_seq, d_model) in the compute dtype
+    (the reference has no frames pipeline)."""
+    import torch
+    from repro_torch import streams
+    from repro_torch.core.cpsl import to_device
+    from repro_torch.data.pipeline import LMClusterData, batch_seed
+    from repro_torch.data.synthetic import MarkovLM
+    data = LMClusterData(MarkovLM(cfg.vocab_size, seed=0), LM_M * LM_K,
+                         batch, seq, seed=0)
+    gen = streams.sampler_generator(6, "cuda")
+    out = {}
+    for r in range(LM_ROUNDS):
+        for m in range(LM_M):
+            b = {k: to_device(a, "cuda") for k, a in data.cluster_batch(
+                list(range(m * LM_K, (m + 1) * LM_K)),
+                seed=batch_seed(0, r, m, 0)).items()}
+            if cfg.encdec:
+                b["frames"] = torch.randn(
+                    (LM_K, batch, cfg.enc_seq, cfg.d_model), device="cuda",
+                    generator=gen).to(getattr(torch, cfg.dtype))
+            out[r, m] = b
+    return out
+
+
+def _fingerprint(state) -> list:
+    """Per leaf of the state's ``dev`` and ``srv`` trees, an exact
+    checksum of its bits weighted by position: the sum over elements of
+    bits(x_i) * (2 i + 1) in wrapping int64, one a chunk of 2^22
+    elements (None for an empty leaf; ~130 MB of transients at most). A
+    change to one element changes it, and so do opposite changes to two:
+    the K clients' copies of a device leaf start equal, and one ulp up in
+    one copy with one ulp down in the other leaves sums of the values and
+    of their squares as they were."""
+    import torch
+    from repro_torch import tree
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    out = []
+    for t in tree.leaves({"dev": state["dev"], "srv": state["srv"]}):
+        sums = []
+        for i, c in enumerate(t.reshape(-1).split(1 << 22)):
+            w = torch.arange(i << 22, (i << 22) + c.numel(), device=c.device,
+                             dtype=torch.int64) * 2 + 1
+            sums.append((c.view(bits[c.dtype]).long() * w).sum())
+        out.append(torch.stack(sums) if t.numel() else None)
+    return out
+
+
+# a leaf must move in the first step when some element's SGD update |lr g|,
+# less the gradient's measured run-to-run variation, is at least this many
+# ulps of its value: an update over half an ulp always changes a
+# round-to-nearest value, one under half an ulp is rounded away (a bf16
+# norm scale of 1.0 keeps 1.0 unless |lr g| >= 2^-8), and the margin from
+# half an ulp to one covers the rounding of lr g itself.
+# ``_first_step_updates`` measures the variation as the largest
+# |lr (g1 - g2)| of two gradients at the same state and batch, in ulps.
+MOVE_ULPS = 1
+
+
+def _first_step_updates(cp, state, batch) -> list:
+    """For each parameter leaf (``dev`` then ``srv``, flatten order), the
+    first step's SGD update from the gradient at that step's state and
+    batch, computed twice: the leaf path, whether the batch reaches it (a
+    nonzero gradient), the largest update in ulps of its element's value,
+    max |lr g| / ulp(p), the two gradients' largest difference in the
+    same ulps (``rerun_ulps``), whether the first less the second is at
+    least MOVE_ULPS (``must_move``), the largest |lr g| and the largest
+    |p|. Chunks of 2^26 elements bound the transients."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core.cpsl import _value_and_grad
+    grads = []
+    for _ in range(2):
+        _, (g_dev, g_srv) = _value_and_grad(
+            cp._total_loss, (state["dev"], state["srv"]), batch)
+        grads.append(tree.leaves({"dev": g_dev, "srv": g_srv}))
+        del g_dev, g_srv
+    lr = {"dev": cp.ccfg.lr_device, "srv": cp.ccfg.lr_server}
+    precision = {torch.float32: 24, torch.bfloat16: 8}
+    out = []
+    for (path, p), g, g2 in zip(
+            tree.flatten_with_path({"dev": state["dev"],
+                                    "srv": state["srv"]}), *grads):
+        if not p.numel():
+            continue
+        ulps, rerun, g_max = 0.0, 0.0, 0.0
+        for pc, gc, gc2 in zip(p.reshape(-1).split(1 << 26),
+                               g.reshape(-1).split(1 << 26),
+                               g2.reshape(-1).split(1 << 26)):
+            _, e = torch.frexp(pc.float())
+            # the gradient that moves p by one ulp
+            unit = torch.ldexp(torch.ones_like(pc, dtype=torch.float32),
+                               e - precision[p.dtype]) / lr[path[0]]
+            ulps = max(ulps, float((gc.float().abs() / unit).max()))
+            rerun = max(rerun, float(((gc.float() - gc2.float()).abs()
+                                      / unit).max()))
+            g_max = max(g_max, float(gc.abs().max()))
+        out.append({"leaf": "/".join(map(str, path)), "reached": g_max > 0,
+                    "max_update_ulps": ulps, "rerun_ulps": rerun,
+                    "must_move": ulps - rerun >= MOVE_ULPS,
+                    "max_lr_g": lr[path[0]] * g_max,
+                    "max_abs_p": float(p.abs().max())})
+    del grads
     torch.cuda.empty_cache()
-    return {"shape": shape, "kernel_fwd_ms": fwd_ms,
-            "function_bwd_ms": bwd_ms}
+    return out
 
 
 def lm_train_model(arch: str, smi: str) -> dict:
@@ -1629,53 +1966,63 @@ def lm_train_model(arch: str, smi: str) -> dict:
     from repro_torch.configs import registry
     from repro_torch.configs.base import CPSLConfig
     from repro_torch.core.channel import NetworkCfg
-    from repro_torch.core.cpsl import CPSL, to_device
+    from repro_torch.core.cpsl import CPSL
     from repro_torch.core.profile import lm_profile
     from repro_torch.core.resource import saa_cut_selection
     from repro_torch.core.splitting import make_split_model
-    from repro_torch.data.pipeline import LMClusterData, batch_seed
-    from repro_torch.data.synthetic import MarkovLM
-    from repro_torch.models import transformer as tfm
+    from repro_torch.models import api
     start = time.perf_counter()
-    seq, kernel, impl, plain = LM_MODELS[arch]
-    cfg = registry.get(arch).replace(dtype="bfloat16", param_dtype="float32",
-                                     remat=True, loss_chunk=LM_LOSS_CHUNK,
-                                     **impl)
+    spec = LM_MODELS[arch]
+    seq, kernel, impl, plain = (spec["seq"], spec["kernel"], spec["impl"],
+                                spec["plain"])
+    batch = spec["batch"]
+    full = registry.get(arch)
+    cfg = full.replace(**{"dtype": "bfloat16", "param_dtype": "float32",
+                          "remat": True, "loss_chunk": LM_LOSS_CHUNK,
+                          **impl, **spec.get("cfg", {})})
     N = LM_M * LM_K
-    t0 = time.perf_counter()
-    v, means = saa_cut_selection(
-        lm_profile(registry.get(arch), seq),
-        NetworkCfg(n_devices=N, f_mean_range=(5e9, 50e9),
-                   snr_mean_range_db=(15, 35)), B=LM_B, L=1,
-        n_clusters=LM_M, cluster_size=LM_K, n_samples=2, gibbs_iters=40,
-        cuts=range(1, 7))
-    saa_s = time.perf_counter() - t0
+    saa_s, means = None, []
+    if "cut" in spec:
+        v = spec["cut"]
+    else:
+        t0 = time.perf_counter()
+        n_cuts = full.n_enc_layers - 1 if full.encdec else 6
+        v, means = saa_cut_selection(
+            lm_profile(full, seq),
+            NetworkCfg(n_devices=N, f_mean_range=(5e9, 50e9),
+                       snr_mean_range_db=(15, 35)), B=batch, L=1,
+            n_clusters=LM_M, cluster_size=LM_K, n_samples=2, gibbs_iters=40,
+            cuts=range(1, n_cuts + 1))
+        saa_s = time.perf_counter() - t0
     cp = CPSL(make_split_model(cfg, v), CPSLConfig(
         cut_layer=v, n_clusters=LM_M, cluster_size=LM_K, local_epochs=1,
-        batch_per_device=LM_B))
+        batch_per_device=batch))
     torch.cuda.reset_peak_memory_stats()
     state = cp.init_state(streams.model_generator(0, "cuda"))
     n_dev = sum(t[0].numel() for t in tree.leaves(state["dev"]))
     n_srv = sum(t.numel() for t in tree.leaves(state["srv"]))
-    data = LMClusterData(MarkovLM(cfg.vocab_size, seed=0), N, LM_B, seq,
-                         seed=0)
-    clusters = [list(range(m * LM_K, (m + 1) * LM_K)) for m in range(LM_M)]
-    batches = {(r, m): {k: to_device(a, "cuda") for k, a in
-                        data.cluster_batch(clusters[m], seed=batch_seed(
-                            0, r, m, 0)).items()}
-               for r in range(LM_ROUNDS) for m in range(LM_M)}
+    batches = _lm_batches(cfg, seq, batch)
     torch.cuda.synchronize()
     times = {"setup_s": time.perf_counter() - start}
-    log(f"lm_train {arch}: SAA v* = {v} in {saa_s:.1f} s; "
-        f"{n_dev / 1e9:.3f} B device-side params a client, "
-        f"{n_srv / 1e9:.3f} B server-side")
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"lm_train {arch}: v = {v}" + (f" (SAA, {saa_s:.1f} s)" if saa_s
+                                       else " (fixed)")
+        + f"; {n_dev / 1e9:.3f} B device-side params a client, "
+        f"{n_srv / 1e9:.3f} B server-side; init peak {init_peak_gb:.2f} GB")
 
     # the main path, with the kernels' counts read around it: 2 rounds of
     # CPSL.run_round; a step starts where batch_fn is called, and each
-    # step's loss is kept (a device scalar) as cluster_step returns it
+    # step's loss is kept (a device scalar) as cluster_step returns it.
+    # The state's fingerprint before the first step and after it shows
+    # which leaves that step moved; its time after the first step is
+    # taken out of that step's time.
     modules = _kernel_modules()
     marks, step_losses, rnd = [], [], 0
     cluster_step = cp.cluster_step
+    t0 = time.perf_counter()
+    updates = _first_step_updates(cp, state, batches[0, 0])
+    times["first_step_updates_s"] = time.perf_counter() - t0
+    moved = {"before": _fingerprint(state), "after_s": 0.0}
 
     def batch_fn(m, l):
         torch.cuda.synchronize()
@@ -1685,22 +2032,36 @@ def lm_train_model(arch: str, smi: str) -> dict:
     def recording_step(state, batch, lr_scale=None):
         state, mt = cluster_step(state, batch, lr_scale=lr_scale)
         step_losses.append(mt["loss"])
+        if "after" not in moved:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            moved["after"] = _fingerprint(state)
+            torch.cuda.synchronize()
+            moved["after_s"] = time.perf_counter() - t0
         return state, mt
 
     cp.cluster_step = recording_step
+    torch.cuda.reset_peak_memory_stats()
     for m in modules.values():
         m.launches = 0
+    # run_round holds the only reference to the state it starts from, so
+    # that state is freed after its first step (a reference kept here
+    # would hold one more copy of the params: 16.8 GB for deepseek)
+    held = [state]
+    del state
     t0 = time.perf_counter()
     for rnd in range(LM_ROUNDS):
-        state, _ = cp.run_round(state, batch_fn)
+        held.append(cp.run_round(held.pop(), batch_fn)[0])
         marks.append(time.perf_counter())       # run_round synced the loss
     wall_s = time.perf_counter() - t0
+    state = held.pop()
     launches = {n: m.launches for n, m in modules.items()}
     cp.cluster_step = cluster_step
     steps = LM_ROUNDS * LM_M
     step_ms = [1e3 * (marks[i + 1] - marks[i])
                for r in range(LM_ROUNDS)
                for i in range(r * (LM_M + 1), r * (LM_M + 1) + LM_M)]
+    step_ms[0] -= 1e3 * moved["after_s"]
     losses = [float(x) for x in step_losses]
     expect = _lm_launches_per_step(cfg, kernel, v)
     other = [n for n in modules if n != kernel]
@@ -1708,13 +2069,34 @@ def lm_train_model(arch: str, smi: str) -> dict:
                                                  for n in other):
         raise AssertionError(f"{arch}: launches {launches} in {steps} "
                              f"steps; expected {expect} of {kernel} a step "
-                             f"(2 * (K*v + layers - v)) and none of "
-                             f"{other}")
-    if len(losses) != steps or not all(np.isfinite(losses)) or \
-            not losses[-1] < losses[0]:
-        raise AssertionError(f"{arch}: step losses {losses} not finite "
-                             f"and falling")
+                             f"and none of {other}")
+    # bf16 SGD can round a small update away, so a bf16-param model's
+    # losses are reported, not held to fall
+    falls = cfg.param_dtype != "bfloat16"
+    if len(losses) != steps or not all(np.isfinite(losses)) or (
+            falls and not losses[-1] < losses[0]):
+        raise AssertionError(f"{arch}: step losses {losses} not finite"
+                             + (" and falling" if falls else ""))
+    # every leaf is reached; every leaf with an update of MOVE_ULPS ulps
+    # or more (past the re-run variation) moved in the first step; the
+    # leaves that did not move are reported
+    fp = [(a, b) for a, b in zip(moved["before"], moved["after"])
+          if a is not None]
+    for u, (a, b) in zip(updates, fp):
+        u["moved"] = not torch.equal(a, b)
+    bad = [u for u in updates
+           if not u["reached"] or (u["must_move"] and not u["moved"])]
+    if bad:
+        raise AssertionError(f"{arch}: leaves not reached by the batch, or "
+                             f"not moved by an update of {MOVE_ULPS} ulps "
+                             f"or more: {bad}")
+    unmoved = [u for u in updates if not u["moved"]]
+    log(f"lm_train {arch}: {len(updates) - len(unmoved)} of {len(updates)} "
+        f"parameter leaves moved in the first step; not moved: "
+        f"{json.dumps(unmoved)}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moved_s = moved["after_s"]
+    del moved
 
     # one step's forward and backward (the optimizer step aside), split
     # by the host clock, under one device profile
@@ -1743,33 +2125,39 @@ def lm_train_model(arch: str, smi: str) -> dict:
     t0 = time.perf_counter()
     params, out_cfg = cp.export_params(state)
     del state
-    toks = batches[0, 0]["tokens"][0, :1, :64]
+    b0 = batches[0, 0]
+    fwd_batch = {"tokens": b0["tokens"][0, :1, :64]}
+    if cfg.encdec:
+        fwd_batch["frames"] = b0["frames"][0, :1]
     with torch.no_grad():
-        logits, _ = tfm.forward(params, toks, out_cfg)
-    if logits.shape != (1, toks.shape[1], cfg.vocab_size) or not bool(
-            torch.isfinite(logits).all()):
+        logits, _ = api.forward(params, fwd_batch, out_cfg)
+    if logits.shape != (1, fwd_batch["tokens"].shape[1], cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{arch}: exported forward {logits.shape}")
-    del params, logits, batches
+    del params, logits, batches, b0, fwd_batch
     torch.cuda.empty_cache()
     times["export_forward_s"] = time.perf_counter() - t0
 
     med = float(np.median(step_ms))
     t0 = time.perf_counter()
-    kernel_bwd = _lm_kernel_bwd(cfg, kernel, seq)
+    kernel_bwd = _lm_kernel_bwd(cfg, kernel, v, seq, batch)
     times["kernel_bwd_s"] = time.perf_counter() - t0
-    # the Function's backward once per forward launch, all at the
-    # server's batch: an estimate from the measured pieces
+    # the Functions' backwards of a step, each timed alone at its shape:
+    # an estimate from the measured pieces
     kernel_bwd["recompute_share_of_step_est"] = (
-        expect / 2 * kernel_bwd["function_bwd_ms"] / med)
+        kernel_bwd["function_bwd_ms_per_step"] / med)
     t0 = time.perf_counter()
-    grads = _lm_grad_check(registry.get(arch), kernel, impl, plain, seq)
+    grads = _lm_grad_check(full.replace(**spec.get("cfg", {}))
+                           .replace(param_dtype="float32"),
+                           kernel, impl, plain, seq)
     times["grad_check_s"] = time.perf_counter() - t0
     out = {
         "model": arch, "card": smi, "seq": seq, "v": v, "saa_s": saa_s,
         "saa_means_s": [float(x) for x in means],
-        "layout": {"N": N, "M": LM_M, "K": LM_K, "B": LM_B, "L": 1,
+        "layout": {"N": N, "M": LM_M, "K": LM_K, "B": batch, "L": 1,
                    "rounds": LM_ROUNDS, "steps": steps,
-                   "dtype": "bfloat16", "param_dtype": "float32",
+                   "n_layers": cfg.n_layers, "full_n_layers": full.n_layers,
+                   "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
                    "remat": True, "loss_chunk": LM_LOSS_CHUNK,
                    "optimizer": "sgd", "lr_device": cp.ccfg.lr_device,
                    "lr_server": cp.ccfg.lr_server},
@@ -1779,32 +2167,51 @@ def lm_train_model(arch: str, smi: str) -> dict:
         "step_losses": losses, "wall_s": wall_s, "step_ms": step_ms,
         "step_ms_median": med, "step_split_ms": split,
         "device_busy_share": prof["busy_share"], "profile": prof,
-        "peak_memory_gb": peak_gb,
+        "init_peak_memory_gb": init_peak_gb, "peak_memory_gb": peak_gb,
         "launches_per_step": {n: c / steps for n, c in launches.items()},
         "launches_per_step_expected": expect, "kernel_bwd": kernel_bwd,
+        "first_step": {"leaves": len(updates),
+                       "moved": len(updates) - len(unmoved),
+                       "move_ulps": MOVE_ULPS,
+                       "rerun_max_ulps": max(u["rerun_ulps"]
+                                             for u in updates),
+                       "fingerprint_ms": 1e3 * moved_s,
+                       "not_moved": unmoved},
         "grad_check": grads, "times": times,
         "phase_s": time.perf_counter() - start}
+    if cfg.encdec:
+        out["enc_seq"] = cfg.enc_seq
     log(f"lm_train {arch}: " + json.dumps(out))
     return out
 
 
 def lm_train_phase(smi: str) -> dict:
-    """Split-LM CPSL training at full width and depth: gemma2-2b through
-    K1 in every attention layer (S = 5120, past the 4096 window), then
-    mamba2-2.7b through K2 in every layer (S = 4096, train_4k's
-    sequence), both bf16 with f32 params, remat on, random seeded
-    weights, synthetic Markov tokens. For each: SAA over cuts 1..6, 2
-    rounds of ``CPSL.run_round`` on seeded ``LMClusterData`` batches (the
-    counts read around them), one forward and backward under the
-    profiler with their split, ``export_params`` and a forward of the
-    assembled model, the kernel's forward against its Function's backward
-    at the server's shape, and one block of each kind through the kernel
-    path against the plain path. Then the launcher with ``--arch
-    gemma2-2b --reduced --rounds 2`` through ``CPSLTrainer`` and its
-    checkpoint. Checks, none
-    caught: finite, falling step losses; each kernel's launches equal to
-    2 * (K*v + layers - v) a step and the other kernel's 0; the block
-    gradients within LM_GRAD_TOL; the launcher's losses finite."""
+    """Split-LM CPSL training at full width: gemma2-2b through K1 in every
+    attention layer (S = 5120, past the 4096 window), mamba2-2.7b through
+    K2 in every layer (S = 4096, train_4k's sequence), whisper-small with
+    the cut inside the encoder (K1 at D = 64: the encoder's non-causal
+    self-attention over 1500 frames, the decoder's causal self-attention
+    over 448 tokens and its cross-attention over the frames; 4 clips a
+    device), and deepseek-v2-lite-16b (MLA through K1 at D = 192, MoE, bf16
+    params, DEEPSEEK_TRAIN_LAYERS of its 27 layers, v = 1, one 4096-token
+    sequence a device); bf16 compute, remat on, random seeded weights,
+    synthetic Markov tokens (and random frames for whisper). For each: the
+    cut (SAA over cuts 1..6, or the encoder's, unless fixed), 2 rounds of
+    ``CPSL.run_round`` on seeded batches (the counts read around them),
+    one forward and backward under the profiler with their split,
+    ``export_params`` and a forward of the assembled model, the kernel's
+    forward against its Function's backward at each shape a step runs,
+    and one block of each kind through the kernel path against the plain
+    path.
+    Then the launcher with ``--arch gemma2-2b --reduced --rounds 2``
+    through ``CPSLTrainer`` and its checkpoint. Checks, none caught:
+    finite step losses, falling where the params are f32; every
+    parameter leaf reached by the first step, and moved where an update
+    is MOVE_ULPS ulp or more of its value past the variation of a
+    re-run gradient; each kernel's launches equal
+    to ``_lm_launches_per_step`` a step and the other kernel's 0; the
+    block gradients within LM_GRAD_TOL (a MoE block's plain path on the
+    kernel path's routes); the launcher's losses finite."""
     import shutil
 
     import numpy as np
@@ -1879,6 +2286,7 @@ def main() -> int:
     sweep = flash_sweep()
     shapes = flash_slice_shapes()
     moe_shapes = flash_moe_shapes()
+    whisper_shapes = flash_whisper_shapes()
     ssd_worst = ssd_sweep()
     ssd_rows = ssd_shapes()
     ssd_jamba = ssd_jamba_shape()
@@ -1886,6 +2294,7 @@ def main() -> int:
     gemma = gemma_serve_phase()
     mamba = mamba_serve_phase()
     moe = moe_serve_phase()
+    whisper = whisper_serve_phase()
     train = train_phase()
     fleet = fleet_phase(train, smi)
     lm_train = lm_train_phase(smi)
@@ -1894,7 +2303,8 @@ def main() -> int:
         """The kernel's launches in each main path's run, each counted
         from 0 just before that run and read just after it."""
         out = {f"{r['model']} generate": r["launches_per_generate"][name]
-               for r in (gemma, mamba, *(moe[a] for a in MOE_MODELS))}
+               for r in (gemma, mamba, *(moe[a] for a in MOE_MODELS),
+                         whisper)}
         for arch, r in lm_train.items():
             if isinstance(r, dict) and "launches_per_step" in r:
                 out[f"{arch} training step"] = int(
@@ -1920,6 +2330,7 @@ def main() -> int:
                         "(the same function at this shape; for the gemma2 "
                         "shapes without softcap: no torch call softcaps)",
         "shape": mla["shape"], "moe_shapes": moe_shapes,
+        "whisper_shapes": whisper_shapes,
         "gemma2_shapes": shapes, "sweep_max_abs_err": sweep}, {
         "name": "ssd", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd.cu",
@@ -1938,6 +2349,7 @@ def main() -> int:
         "mamba2_flat_shape": ssd_flat_row,
         "short_chunks": ssd_short, "sweep_max_abs_err": ssd_worst}]
     print(json.dumps({"moe_serve": moe}))
+    print(json.dumps({"whisper_serve": whisper}))
     print(json.dumps({"train": train}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"lm_train": lm_train}))

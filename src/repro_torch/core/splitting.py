@@ -21,8 +21,10 @@ Cut-layer conventions per family:
     device owns the embedding table; the server cannot share it across
     the wireless link). Each half returns its MoE layers' summed router
     aux loss beside its output.
+  - enc-dec (whisper): the cut lies inside the encoder, 1 <= v < n_enc;
+    device = frames + positions + encoder blocks [:v]; server = encoder
+    blocks [v:], the encoder norm, the whole decoder and the (tied) head.
   - LeNet (the paper's model): layer-granular Table III split.
-The enc-dec split comes with ROADMAP slice 6.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as cm
 from repro_torch.models import lenet as ln
 from repro_torch.models import transformer as tfm
+from repro_torch.models import whisper as whp
 
 
 @dataclass(frozen=True)
@@ -157,6 +160,18 @@ def make_lenet_split(v: int, input_hw: int = 28,
 # LM split
 # --------------------------------------------------------------------------
 
+def _client_loop(device_apply):
+    """``device_apply_clients`` as a Python loop over the K clients
+    (``torch.func.vmap`` cannot see through a kernel launch), every
+    K-stacked leaf unbound once."""
+    def device_apply_clients(dev, batch):
+        outs = [device_apply(d, b)
+                for d, b in zip(tree.unbind(dev), tree.unbind(batch))]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
+    return device_apply_clients
+
+
 def _split_cfgs(cfg: ModelConfig, v: int):
     """(device cfg, server cfg) for a cut after layer v. The device runs
     layers [:v] as an unrolled prologue; the server runs the rest, its
@@ -221,14 +236,6 @@ def make_lm_split(cfg: ModelConfig, v: int) -> SplitModel:
         x = cm.embed_apply(dev["embed"], tokens, cfg)
         return tfm._stack_forward(dev, x, dev_cfg, positions)
 
-    def device_apply_clients(dev, batch):
-        """A Python loop over the K clients (``torch.func.vmap`` cannot see
-        through a kernel launch), every K-stacked leaf unbound once."""
-        outs = [device_apply(d, b)
-                for d, b in zip(tree.unbind(dev), tree.unbind(batch))]
-        return (torch.stack([o[0] for o in outs]),
-                torch.stack([o[1] for o in outs]))
-
     def server_loss(srv, smashed, batch):
         positions = torch.arange(smashed.shape[1], device=smashed.device)
         x, aux = tfm._stack_forward(srv, smashed, srv_cfg, positions)
@@ -260,8 +267,70 @@ def make_lm_split(cfg: ModelConfig, v: int) -> SplitModel:
                            dtype=cm.cdtype(cfg), device="meta")
 
     return SplitModel("lm", cfg, v, len(cfg.layer_specs()) - 1, init_device,
-                      init_server, device_apply, device_apply_clients,
+                      init_server, device_apply, _client_loop(device_apply),
                       server_loss, export, smashed_spec)
+
+
+# --------------------------------------------------------------------------
+# enc-dec (whisper) split: the cut inside the encoder
+# --------------------------------------------------------------------------
+
+def make_encdec_split(cfg: ModelConfig, v: int) -> SplitModel:
+    """The whisper split at encoder cut v. Params are the reference's
+    trees: the device ``{"enc_stack": v blocks}``, the server the whole
+    model's tree with ``enc_stack`` holding blocks [v:]. The encoder
+    blocks run without remat on both sides (the reference's plain scan);
+    the server's decoder checkpoints each block when ``cfg.remat``."""
+    n_enc = cfg.n_enc_layers
+    if not 1 <= v < n_enc:
+        raise ValueError(f"cut {v} out of range for {cfg.name}: the cut "
+                         f"lies inside the encoder, 1 <= v < {n_enc}")
+    n_dec = cfg.n_layers - n_enc
+    dt = cm.pdtype(cfg)
+
+    def init_device(generator):
+        return {"enc_stack": tfm._stack([whp._enc_block_init(generator, cfg)
+                                         for _ in range(v)])}
+
+    def init_server(generator):
+        dev = generator.device
+        return {
+            "embed": cm.embed_init(generator, cfg),
+            "enc_stack": tfm._stack([whp._enc_block_init(generator, cfg)
+                                     for _ in range(n_enc - v)]),
+            "enc_norm": cm.norm_init(cfg.d_model, "layernorm", dt, dev),
+            "dec_stack": tfm._stack([whp._dec_block_init(generator, cfg)
+                                     for _ in range(n_dec)]),
+            "dec_norm": cm.norm_init(cfg.d_model, "layernorm", dt, dev),
+        }
+
+    def device_apply(dev, batch):
+        x = whp.enc_blocks(dev["enc_stack"],
+                           whp.embed_frames(batch["frames"], cfg), cfg)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def server_loss(srv, smashed, batch):
+        x = whp.enc_blocks(srv["enc_stack"], smashed, cfg)
+        memory = cm.apply_norm(srv["enc_norm"], x, "layernorm", cfg.norm_eps)
+        xd = whp.decode_hidden(srv, batch["tokens"], memory, cfg)
+        loss = cm.lm_head_loss(tfm.head_matrix(srv, cfg), xd,
+                               batch["labels"], cfg, batch.get("mask"))
+        return loss, torch.zeros((), dtype=torch.float32,
+                                 device=loss.device)
+
+    def export(dev, srv):
+        params = dict(srv)
+        params["enc_stack"] = tree.map(lambda a, b: torch.cat([a, b], 0),
+                                       dev["enc_stack"], srv["enc_stack"])
+        return params, cfg
+
+    def smashed_spec(batch_size, seq=None):
+        return torch.empty((batch_size, cfg.enc_seq, cfg.d_model),
+                           dtype=cm.cdtype(cfg), device="meta")
+
+    return SplitModel("encdec", cfg, v, n_enc - 1, init_device, init_server,
+                      device_apply, _client_loop(device_apply), server_loss,
+                      export, smashed_spec)
 
 
 def make_split_model(cfg_or_name, v: int, **kw) -> SplitModel:
@@ -271,6 +340,5 @@ def make_split_model(cfg_or_name, v: int, **kw) -> SplitModel:
     if cfg.family == "cnn":
         return make_lenet_split(v, **kw)
     if cfg.encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the enc-dec split comes with ROADMAP slice 6")
+        return make_encdec_split(cfg, v)
     return make_lm_split(cfg, v)

@@ -9,10 +9,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v2-lite-16b --param-dtype bfloat16 \
         --batch 4 --prompt-len 4096 --steps 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+        --batch 16 --prompt-len 64 --steps 16
 
 Attention layers run the flash-attention kernel and Mamba-2 layers the
 SSD kernel (``attn_impl``/``ssd_impl`` "pallas", the reference's name);
-on the CPU the kernels' wrappers take their plain versions.
+on the CPU the kernels' wrappers take their plain versions. An
+encoder-decoder arch (whisper) gets zero frame embeddings, (batch,
+enc_seq, d_model), as in the reference: the audio frontend is a stub.
 """
 from __future__ import annotations
 
@@ -57,6 +61,11 @@ def main(argv=None):
     batch = {"tokens": torch.randint(
         0, cfg.vocab_size, (args.batch, args.prompt_len), device=device,
         generator=streams.sampler_generator(1, device))}
+    if cfg.encdec:
+        # the audio frontend is a stub: zero frame embeddings
+        batch["frames"] = torch.zeros(
+            (args.batch, cfg.enc_seq, cfg.d_model),
+            dtype=getattr(torch, cfg.dtype), device=device)
     t0 = time.perf_counter()
     out = eng.generate(batch, steps=args.steps,
                        temperature=args.temperature,

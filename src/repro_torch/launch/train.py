@@ -78,8 +78,11 @@ def main(argv=None):
         cfg = registry.get(args.arch)
         if api.is_encdec(cfg):
             raise NotImplementedError(
-                f"--arch {args.arch}: the enc-dec split comes with ROADMAP "
-                "slice 6")
+                f"--arch {args.arch}: an encoder-decoder model needs frame "
+                "embeddings, and the launcher's data (LMClusterData) "
+                "yields only tokens and labels, as the reference's does; "
+                "drive make_split_model and CPSL with {frames, tokens, "
+                "labels} batches instead")
         if args.reduced:
             cfg = registry.reduce_for_smoke(cfg)
         if device.type == "cuda":

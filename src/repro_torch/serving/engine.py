@@ -30,7 +30,8 @@ class ServeEngine:
 
     def generate(self, batch, steps: int, temperature: float = 0.0,
                  generator: Optional[torch.Generator] = None):
-        """batch: {"tokens": (B, S_prompt)}. Returns (B, steps) generated
+        """batch: {"tokens": (B, S_prompt)}, and for an enc-dec model
+        {"tokens", "frames": (B, S_enc, D)}. Returns (B, steps) generated
         tokens (int32)."""
         logits, cache = self.prefill(batch)
         S = batch["tokens"].shape[1]

@@ -743,3 +743,153 @@ def test_split_lm_round_on_card_matches_cpu(cuda, arch):
             assert err <= 1e-4, err
         else:
             assert torch.equal(b.cpu(), a)
+
+
+# --------------------------------------------------------------------------
+# whisper: K1 at head dim 64, non-causal, Sq != Skv
+# --------------------------------------------------------------------------
+
+# (BHkv, R, Sq, Skv): the encoder's self-attention (ragged against the
+# 64-row and 64-key tiles), the decoder's cross-attention at a prompt of
+# 64 and of 5 queries over whisper's 1500 frames
+WHISPER_CASES = [(3, 1, 300, 300), (2, 2, 64, 1500), (4, 1, 5, 1500)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BHkv,R,Sq,Skv", WHISPER_CASES)
+def test_flash_kernel_whisper_shapes_vs_plain(cuda, dtype, BHkv, R, Sq, Skv):
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q = _randn(gen, BHkv * R, Sq, 64, dtype=dtype)
+    k = _randn(gen, BHkv, Skv, 64, dtype=dtype)
+    v = _randn(gen, BHkv, Skv, 64, dtype=dtype)
+    kw = dict(causal=False, window=0, softcap=0.0, q_offset=0, kv_repeat=R)
+    before = fk.launches
+    got = fk.flash_attention_flat(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fk.launches == before + 1
+    want = attention_ref(q, k, v, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    # non-causal over many keys the outputs are small (~0.1): in bf16,
+    # one ulp of the largest output, 2^-7 max|want|, not BF16_TOL, which
+    # is about the outputs' own size; two roundings of values that agree
+    # far below an ulp differ by at most one ulp
+    if dtype == torch.float32:
+        assert err < F32_TOL
+    else:
+        tol = min(BF16_TOL, 2.0 ** -7 * want.float().abs().max().item())
+        assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("BHkv,R,Sq,Skv", WHISPER_CASES)
+def test_flash_kernel_whisper_ragged_mask_probe(cuda, BHkv, R, Sq, Skv):
+    """bf16 on q ~ N(2, 1), k ~ N(-2, 1): real scores ~ -32, so an
+    unmasked key past Skv in the ragged last key tile (score 0 on
+    zero-filled rows) would take nearly all the weight."""
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    q = (_randn(gen, BHkv * R, Sq, 64) + 2).bfloat16()
+    k = (_randn(gen, BHkv, Skv, 64) - 2).bfloat16()
+    v = _randn(gen, BHkv, Skv, 64, dtype=torch.bfloat16)
+    kw = dict(causal=False, window=0, softcap=0.0, q_offset=0, kv_repeat=R)
+    got = fk.flash_attention_flat(q, k, v, **kw)
+    want = attention_ref(q, k, v, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = min(BF16_TOL, 2.0 ** -7 * want.float().abs().max().item())
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, BF16_TOL)])
+def test_flash_function_grads_cross_attention(cuda, dtype, tol):
+    """K1's Function on whisper's cross-attention form (non-causal, 48
+    queries over 300 keys, D = 64, GQA R = 2) against
+    ``chunked_attention``: the output and dq/dk/dv."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    B, Sq, Skv, G, R, D = 2, 48, 300, 2, 2, 64
+    args = (False, 0, 0.0, 0)
+    q = _randn(gen, B, Sq, G, R, D, dtype=dtype)
+    k, v = (_randn(gen, B, Skv, G, D, dtype=dtype) for _ in range(2))
+    g = _randn(gen, B, Sq, G, R, D, dtype=dtype)
+    outs = []
+    for fn in (fa_ops.flash_attention, cm.chunked_attention):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = fk.launches
+        out = fn(*ins, *args)
+        outs.append([out] + list(torch.autograd.grad(out, ins, g)))
+        assert (fk.launches > before) == (fn is fa_ops.flash_attention)
+    for a, b in zip(*outs):
+        a, b = a.detach().float(), b.detach().float()
+        err = float((a - b).abs().max())
+        assert err <= tol * max(1.0, float(b.abs().max())), err
+
+
+def _whisper_cfg():
+    """Reduced whisper in f32 on the kernel path at head dim 64 and 100
+    frames (ragged against the kernel's tiles)."""
+    return registry.reduce_for_smoke(registry.get("whisper-small")).replace(
+        dtype="float32", attn_impl="pallas", head_dim=64, enc_seq=100)
+
+
+def test_reduced_whisper_serves_through_the_kernel(cuda):
+    """One K1 launch per encoder layer and two per decoder layer (self
+    and cross) in a generate's prefill, none in decode; the tokens equal
+    the naive path's and the prefill logits are within 1e-4."""
+    cfg = _whisper_cfg()
+    params = api.init(streams.model_generator(0, cuda), cfg)
+    gen = streams.sampler_generator(1, cuda)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 20),
+                                     device=cuda, generator=gen),
+             "frames": torch.randn((2, cfg.enc_seq, cfg.d_model),
+                                   device=cuda, generator=gen)}
+    eng = ServeEngine(cfg, params, cap=28, device=cuda)
+    naive = ServeEngine(cfg.replace(attn_impl="naive"), params, cap=28,
+                        device=cuda)
+    n_dec = cfg.n_layers - cfg.n_enc_layers
+    before = fk.launches
+    out = eng.generate(batch, steps=8)
+    assert fk.launches - before == cfg.n_enc_layers + 2 * n_dec
+    assert torch.equal(out, naive.generate(batch, steps=8))
+    err = (eng.prefill(batch)[0] - naive.prefill(batch)[0]).abs().max()
+    assert err.item() < 1e-4
+
+
+def test_whisper_split_round_on_card_matches_cpu(cuda):
+    """A reduced whisper split at v = 1 in f32 with remat, one 2 x 2 CPSL
+    round: the card (K1 launched K*v + (n_enc - v) + 4 * n_dec times a
+    step: the encoder once, the decoder's self and cross attention twice
+    under remat) against the CPU (K1's plain version), within 1e-4 per
+    leaf."""
+    from repro_torch import tree
+    from repro_torch.configs.base import CPSLConfig
+    from repro_torch.core.cpsl import CPSL, to_device
+    from repro_torch.core.splitting import make_split_model
+    cfg = _whisper_cfg().replace(remat=True)
+    cp = CPSL(make_split_model(cfg, 1), CPSLConfig(
+        cut_layer=1, n_clusters=2, cluster_size=2, batch_per_device=2))
+    rng = np.random.default_rng(0)
+    batches = [{"frames": rng.standard_normal(
+                    (2, 2, cfg.enc_seq, cfg.d_model)).astype(np.float32),
+                "tokens": rng.integers(0, cfg.vocab_size, (2, 2, 24),
+                                       dtype=np.int32),
+                "labels": rng.integers(0, cfg.vocab_size, (2, 2, 24),
+                                       dtype=np.int32)} for _ in range(2)]
+    state = cp.init_state(streams.model_generator(0, "cpu"))
+    n_enc, n_dec = cfg.n_enc_layers, cfg.n_layers - cfg.n_enc_layers
+    outs = []
+    for dev in ("cpu", cuda):
+        before = fk.launches
+        outs.append(cp.run_round(
+            tree.map(lambda t: t.to(dev), state),
+            lambda m, l, d=dev: {k: to_device(a, d)
+                                 for k, a in batches[m].items()}))
+        if dev == cuda:
+            assert fk.launches - before == 2 * (2 * 1 + n_enc - 1
+                                                + 4 * n_dec)
+    (s_cpu, m_cpu), (s_card, m_card) = outs
+    assert m_card["loss"] == pytest.approx(m_cpu["loss"], rel=1e-5)
+    for a, b in zip(tree.leaves(s_cpu), tree.leaves(s_card)):
+        if a.dtype.is_floating_point:
+            err = float((b.cpu() - a).abs().max()) / max(
+                1.0, float(a.abs().max()))
+            assert err <= 1e-4, err
+        else:
+            assert torch.equal(b.cpu(), a)

@@ -23,7 +23,6 @@ from repro.models import lenet as rlenet
 from repro import optim as roptim
 from repro_torch import optim as toptim
 from repro_torch import tree
-from repro_torch.configs import registry as tregistry
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import compression as tcmp
 from repro_torch.core import splitting as tsplit
@@ -199,12 +198,6 @@ def test_split_model_surface(params, v):
     tl, _ = ts.server_loss(tsrv, sm, {"label": torch.from_numpy(y),
                                       "sample_weight": torch.from_numpy(w)})
     assert float(tl) == pytest.approx(float(rl), rel=1e-6)
-
-
-@pytest.mark.parametrize("arch,slice_", [("whisper-small", "slice 6")])
-def test_unported_splits_raise(arch, slice_):
-    with pytest.raises(NotImplementedError, match=slice_):
-        tsplit.make_split_model(tregistry.get(arch), 1)
 
 
 # --------------------------------------------------------------------------

@@ -113,6 +113,81 @@ def test_cpsl_lm_round_matches_reference(ref, arch, v, fused):
                          {"dev": rs["dev"], "srv": rs["srv"]}) <= ROUND_TOL
 
 
+def _whisper_batches(cfg, M, K, B, seed=0):
+    """{frames, tokens, labels} with leading (K, B) per cluster: Markov
+    tokens from ``LMClusterData``, frames from numpy."""
+    data = LMClusterData(MarkovLM(cfg.vocab_size, seed=seed), M * K, B, S)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for m in range(M):
+        b = data.cluster_batch(list(range(m * K, (m + 1) * K)),
+                               seed=batch_seed(0, 0, m, 0))
+        b["frames"] = rng.standard_normal(
+            (K, B, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+        out[m, 0] = b
+    return out
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_cpsl_whisper_round_matches_reference(ref, fused):
+    """Reduced whisper-small split at v = 1 (the cut inside the encoder),
+    2 clusters x 2 clients, 2 clips each with remat on: one
+    ``cluster_step`` and ``fedavg``, then a whole ``run_round`` from the
+    start, against the reference (``tests/test_archs.py::
+    test_cpsl_train_step_smoke`` drives its enc-dec batches the same
+    way)."""
+    jcfg, cfg = _cfgs(ref, "whisper-small")
+    jcfg, cfg = jcfg.replace(remat=True), cfg.replace(remat=True)
+    kw = dict(n_clusters=2, cluster_size=2, local_epochs=1,
+              batch_per_device=2, lr_device=0.3, lr_server=0.3,
+              fused_step=fused)
+    rc, tc, rs0, ts0 = _pair(ref, jcfg, cfg, 1, **kw)
+    assert tc.split.kind == "encdec"
+    batches = _whisper_batches(cfg, 2, 2, 2)
+    rs, rm = rc.cluster_step(rs0, _jb(batches[0, 0]))
+    ts, tm = tc.cluster_step(ts0, _tb(batches[0, 0]))
+    assert float(tm["loss"]) == pytest.approx(float(rm["loss"]), rel=1e-5)
+    rs, ts = rc.fedavg(rs), tc.fedavg(ts)
+    assert _max_leaf_err({"dev": ts["dev"], "srv": ts["srv"]},
+                         {"dev": rs["dev"], "srv": rs["srv"]}) <= ROUND_TOL
+    for leaf in tree.leaves(ts["dev"]):
+        assert torch.equal(leaf[0], leaf[1])
+
+    rs, rm = rc.run_round(rs0, lambda m, l: _jb(batches[m, l]), n_clusters=2)
+    ts, tm = tc.run_round(ts0, lambda m, l: _tb(batches[m, l]), n_clusters=2)
+    assert tm["loss"] == pytest.approx(rm["loss"], rel=1e-5)
+    assert int(ts["step"]) == int(rs["step"]) == 2
+    assert _max_leaf_err({"dev": ts["dev"], "srv": ts["srv"]},
+                         {"dev": rs["dev"], "srv": rs["srv"]}) <= ROUND_TOL
+    params, out_cfg = tc.export_params(ts)
+    jparams, _ = rc.export_params(rs)
+    assert out_cfg == cfg
+    assert _max_leaf_err(params, jparams) <= ROUND_TOL
+
+
+@pytest.mark.parametrize("seq", [64, 448])
+def test_lm_profile_whisper_matches_reference(ref, seq):
+    """The enc-dec branch of ``lm_profile`` (cuts inside the encoder, the
+    decoder priced on the server), and the SAA decision it gives over
+    cuts 1..11 at a 2 x 2 layout."""
+    prof = lm_profile(registry.get("whisper-small"), seq=seq)
+    jprof = ref.profile.lm_profile(ref.registry.get("whisper-small"),
+                                   seq=seq)
+    assert len(prof.xi_d) == 12
+    for f in ("xi_d", "xi_s", "xi_g", "gamma_dF", "gamma_dB", "gamma_sF",
+              "gamma_sB"):
+        np.testing.assert_array_equal(getattr(prof, f), getattr(jprof, f))
+    net = dict(n_devices=4, f_mean_range=(5e9, 50e9),
+               snr_mean_range_db=(15, 35))
+    saa = dict(B=4, L=1, n_clusters=2, cluster_size=2, n_samples=2,
+               gibbs_iters=40, cuts=range(1, 12))
+    v, means = saa_cut_selection(prof, NetworkCfg(**net), **saa)
+    jv, jmeans = ref.resource.saa_cut_selection(
+        jprof, ref.channel.NetworkCfg(**net), **saa)
+    assert v == jv and 1 <= v < 12
+    np.testing.assert_array_equal(means, jmeans)
+
+
 def test_example_flow_matches_reference(ref):
     """``examples/cpsl_llm_training.py`` at its sizes (reduced qwen2-0.5b,
     seq 64, 4 sequences a client, 2 clusters of 3, 6 rounds), in float32

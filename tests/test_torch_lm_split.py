@@ -293,3 +293,119 @@ def test_lm_split_init_shapes_match_reference(ref):
         jl, tl = jax.tree.leaves(jt), tree.leaves(tt)
         assert [tuple(a.shape) for a in jl] == [tuple(a.shape) for a in tl]
         assert all(t.dtype == torch.float32 for t in tl)
+
+
+# --------------------------------------------------------------------------
+# make_encdec_split (whisper: the cut inside the encoder)
+# --------------------------------------------------------------------------
+
+def _encdec_cfgs(ref):
+    """Reduced whisper with 3 encoder layers (so the cuts 1 and n_enc - 1
+    differ) and 2 decoder layers, f32, remat on (the server's decoder
+    checkpoints its blocks; the encoder never does); the port on K1's
+    Function, the reference on chunked attention."""
+    jcfg = ref.registry.reduce_for_smoke(ref.registry.get("whisper-small"))
+    cfg = registry.reduce_for_smoke(registry.get("whisper-small"))
+    kw = dict(dtype="float32", n_enc_layers=3, n_layers=5, remat=True)
+    return jcfg.replace(**kw), cfg.replace(attn_impl="pallas", **kw)
+
+
+def _encdec_batch(cfg, B, seed):
+    rng = np.random.default_rng(seed)
+    return {"frames": rng.standard_normal(
+                (B, cfg.enc_seq, cfg.d_model)).astype(np.float32),
+            "tokens": rng.integers(0, cfg.vocab_size, (B, S), np.int32),
+            "labels": rng.integers(0, cfg.vocab_size, (B, S), np.int32)}
+
+
+@pytest.mark.parametrize("v", [1, 2])       # 1 and n_enc - 1
+def test_encdec_split_matches_reference(ref, v):
+    """Each half's output, loss and gradients (device params through the
+    smashed data's cotangent; server params and the smashed data), the
+    ``export`` round trip and ``smashed_spec``, against the reference's
+    ``make_encdec_split``."""
+    from repro_torch.core.splitting import make_encdec_split
+    from repro_torch.models import whisper as whp
+    jcfg, cfg = _encdec_cfgs(ref)
+    js, ts = ref.splitting.make_encdec_split(jcfg, v), make_encdec_split(
+        cfg, v)
+    assert ts.kind == js.kind == "encdec" and ts.n_cuts == js.n_cuts == 2
+    jdev = js.init_device(jax.random.PRNGKey(1))
+    jsrv = js.init_server(jax.random.PRNGKey(2))
+    tdev = params_from_numpy(jax.device_get(jdev), "cpu")
+    tsrv = params_from_numpy(jax.device_get(jsrv), "cpu")
+    b = _encdec_batch(cfg, 2, seed=v)
+    cot = np.random.default_rng(11).standard_normal(
+        (2, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+
+    (sm_j, aux_j), vjp = jax.vjp(lambda d: js.device_apply(d, _jb(b)), jdev)
+    gdev_j, = vjp((jnp.asarray(cot), jnp.zeros((), jnp.float32)))
+    dev = _requires_grad(tdev)
+    sm, aux = ts.device_apply(dev, _tb(b))
+    assert max(_leaf_errs([sm, aux], [sm_j, aux_j])) <= GRAD_TOL
+    spec, jspec = ts.smashed_spec(2, S), js.smashed_spec(2, S)
+    assert spec.device.type == "meta" and spec.shape == sm.shape
+    assert tuple(spec.shape) == tuple(jspec.shape)
+    assert str(spec.dtype).split(".")[1] == str(jspec.dtype)
+    gdev = torch.autograd.grad(sm, tree.leaves(dev), torch.from_numpy(cot))
+    assert max(_leaf_errs(gdev, jax.tree.leaves(gdev_j))) <= GRAD_TOL
+
+    (loss_j, _), (gsrv_j, gsm_j) = jax.value_and_grad(
+        lambda s, x: js.server_loss(s, x, _jb(b)), argnums=(0, 1),
+        has_aux=True)(jsrv, sm_j)
+    srv = _requires_grad(tsrv)
+    smt = sm.detach().requires_grad_()
+    loss, aux_s = ts.server_loss(srv, smt, _tb(b))
+    assert float(aux_s) == 0.0
+    assert float(loss.detach()) == pytest.approx(float(loss_j), rel=1e-6)
+    g = _grads(loss, tree.leaves(srv) + [smt])
+    assert max(_leaf_errs(g[:-1], jax.tree.leaves(gsrv_j))) <= GRAD_TOL
+    assert max(_leaf_errs(g[-1:], [gsm_j])) <= GRAD_TOL
+
+    jp, jc = js.export(jdev, jsrv)
+    tp, tc = ts.export(tdev, tsrv)
+    assert tc == cfg
+    assert max(_leaf_errs(tree.leaves(tp), jax.tree.leaves(jp))) == 0.0
+    assert tp["enc_stack"]["attn"]["wq"]["w"].shape[0] == cfg.n_enc_layers
+    logits_j, _ = ref.splitting.whp.forward(jp, _jb(b), jc)
+    with torch.no_grad():
+        logits, _ = api.forward(tp, _tb(b), tc)
+        # the split's two halves compose to the assembled model's encoder
+        memory = whp.encode(tp, torch.from_numpy(b["frames"]), tc)
+        x = whp.enc_blocks(tsrv["enc_stack"], sm.detach(), tc)
+    assert max(_leaf_errs([logits], [logits_j])) <= GRAD_TOL
+    from repro_torch.models import common as cm
+    assert float((cm.apply_norm(tsrv["enc_norm"], x, "layernorm",
+                                cfg.norm_eps) - memory).abs().max()) <= 1e-6
+
+
+def test_encdec_split_refuses_cuts_outside_the_encoder(ref):
+    from repro_torch.core.splitting import make_encdec_split, \
+        make_split_model
+    jcfg, cfg = _encdec_cfgs(ref)
+    for v in (0, cfg.n_enc_layers):
+        with pytest.raises(ValueError, match="inside the encoder"):
+            make_encdec_split(cfg, v)
+        with pytest.raises(ValueError, match="inside the encoder"):
+            make_split_model(cfg, v)
+        with pytest.raises(AssertionError):
+            ref.splitting.make_encdec_split(jcfg, v)
+    assert make_split_model(cfg, 1).kind == "encdec"
+
+
+def test_encdec_split_init_shapes_match_reference(ref):
+    """The port's own init draws torch numbers into the reference's trees
+    (the device's v encoder blocks; the server's whole model with the
+    remaining encoder blocks)."""
+    from repro_torch.core.splitting import make_encdec_split
+    jcfg, cfg = _encdec_cfgs(ref)
+    js, ts = ref.splitting.make_encdec_split(jcfg, 2), make_encdec_split(
+        cfg, 2)
+    gen = torch.Generator().manual_seed(0)
+    for jt, tt in ((js.init_device(jax.random.PRNGKey(0)),
+                    ts.init_device(gen)),
+                   (js.init_server(jax.random.PRNGKey(1)),
+                    ts.init_server(gen))):
+        jl, tl = jax.tree.leaves(jt), tree.leaves(tt)
+        assert [tuple(a.shape) for a in jl] == [tuple(a.shape) for a in tl]
+        assert all(t.dtype == torch.float32 for t in tl)

@@ -250,12 +250,6 @@ def test_port_init_is_seeded_and_serves():
     assert out.shape == (2, 3)
 
 
-def test_unported_families_raise():
-    cfg = registry.reduce_for_smoke(registry.get("whisper-small"))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        api.init(streams.model_generator(0, "cpu"), cfg)
-
-
 # -- the MoE and MLA models ---------------------------------------------------
 # Reduced deepseek-v2-lite (MLA, a dense prologue layer, MoE with shared
 # experts), phi3.5-moe (GQA + MoE) and jamba (one attention layer and seven
@@ -446,6 +440,7 @@ def test_port_never_imports_jax_or_reference():
     assert not bad, bad
     code = ("import sys; import repro_torch.serving.engine, "
             "repro_torch.launch.serve, repro_torch.models.mamba2, "
+            "repro_torch.models.whisper, repro_torch.core.splitting, "
             "repro_torch.kernels.ssd.ops, repro_torch.launch.train, "
             "repro_torch.train.trainer, repro_torch.core.cpsl, "
             "repro_torch.core.profile, repro_torch.checkpoint.checkpointer, "

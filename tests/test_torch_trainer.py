@@ -355,7 +355,7 @@ def test_launcher_runs_on_cpu_and_refuses_without_cuda(tmp_path,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tlaunch.main(args)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="frame embeddings"):
         tlaunch.main(args + ["--device", "cpu", "--arch", "whisper-small"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tpipe.DeviceResidentDataset(np.zeros((2, 28, 28, 1), np.float32),

@@ -87,10 +87,19 @@ failures is caught:
    kernel's ``autograd.Function`` (f32 and bf16; a MoE block's plain
    path on the kernel path's routes); then ``launch/train.py --arch
    gemma2-2b --reduced`` through ``CPSLTrainer``.
+10. sim: the wireless-dynamics simulator (``repro_torch.sim``), float64
+   on the card: ``SimFleetRunner`` on bench_simfleet's two grids at the
+   paper's N = C = 30, K = 5 (greedy and equal, 8 seeds x 150 slots;
+   the proposed two-timescale controller, 8 seeds x 60 slots) and on
+   fig. 7's 300 runs x 12 cuts, each episode's decisions against the
+   port's looped NumPy ``run_reference`` and, for the bench grids, a CPU
+   ``run``; ``SimEngine`` training LeNet at examples/dynamics_sim.py's
+   setting, its trace recomputed. It launches no hand-written kernel.
 
 Prints one ``{"moe_serve": {...}}`` line, one ``{"whisper_serve":
 {...}}`` line, one ``{"train": {...}}`` line, one ``{"fleet": {...}}``
-line, one ``{"lm_train": {...}}`` line, one ``{"kernels": [...]}`` line,
+line, one ``{"lm_train": {...}}`` line, one ``{"sim": {...}}`` line, one
+``{"kernels": [...]}`` line,
 the script's seconds and, last, the device line ``{"ok": true, "device":
 {...}}``.
 """
@@ -2233,6 +2242,282 @@ def lm_train_phase(smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# 10. sim: the wireless-dynamics simulator (no hand-written kernel)
+# --------------------------------------------------------------------------
+
+# benchmarks/bench_simfleet.py: the paper's N = 30, C = 30, K = 5, cut 3,
+# B = 16, L = 1, LeNet profile
+SIM_NET = dict(n_devices=30, n_subcarriers=30)
+SIM_GRID = dict(seeds=tuple(range(8)), cluster_sizes=(5,), cuts=(3,),
+                batch_per_device=16, local_epochs=1)
+SIM_BENCH = dict(rounds=150, policies=("greedy", "equal"))
+SIM_BENCH_DYN = dict(rho_snr=0.9, rho_f=0.95, seed=0,
+                     forced_departures={5: (2,), 12: (7, 9)},
+                     energy_budget_j=400.0)
+SIM_PROPOSED = dict(rounds=60, policies=("proposed",), epoch_len=10,
+                    gibbs_iters=25, gibbs_chains=1, saa_samples=2,
+                    saa_gibbs_iters=12, saa_cuts=(1, 2, 3), n_reserve=2,
+                    min_devices_floor=True)
+SIM_PROPOSED_DYN = dict(rho_snr=0.9, rho_f=0.95, seed=0, p_depart=0.02,
+                        p_arrive=0.1, min_devices=4, energy_budget_j=400.0)
+FIG7_RUNS = 300                    # benchmarks/fig7_cut_layer.py, full mode
+FIG7_SAMPLE = 24                   # episodes checked against run_reference
+SIM_RTOL = 1e-9                    # bench_simfleet: fleet vs looped host
+SIM_RECOMPUTE_RTOL = 1e-12         # bench_simfleet: vs the NumPy oracle
+SIM_TRACE_TOL = 1e-6               # examples/dynamics_sim.py
+SIM_DECISIONS = ("dev", "mask", "csize", "xs", "v", "active", "n_active")
+
+
+def _sim_rel(a, b) -> float:
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+
+
+def _sim_against_reference(runner, res, episodes) -> dict:
+    """Each episode of a card ``run`` against the port's looped NumPy
+    ``run_reference``: identical cut, cluster and allocation decisions
+    every slot, latencies within SIM_RTOL."""
+    from repro_torch.sim.fleet import fleet_trace_records
+    worst, t0 = 0.0, time.perf_counter()
+    for e in episodes:
+        want = runner.run_reference(e)
+        got = fleet_trace_records(res, e)
+        for t, (g, w) in enumerate(zip(got, want)):
+            same = (g["v"] == w["v"] and g["clusters"] == w["clusters"]
+                    and len(g["xs"]) == len(w["xs"])
+                    and all((a == b).all() for a, b in zip(g["xs"],
+                                                           w["xs"])))
+            if not same:
+                raise AssertionError(f"sim: episode {e} slot {t}: card "
+                                     "decision differs from run_reference")
+        worst = max(worst, _sim_rel([g["latency_s"] for g in got],
+                                    [w["latency_s"] for w in want]))
+    if worst > SIM_RTOL:
+        raise AssertionError(f"sim: latency vs run_reference {worst:.3e}")
+    return {"episodes_checked": len(episodes), "max_rel_err": worst,
+            "wall_s": time.perf_counter() - t0}
+
+
+def _sim_fleet_case(label: str, build, smi: str, profile_slots: int,
+                    cpu_check: bool = True, sample=None) -> dict:
+    """One grid on the card: two ``run``s (the first pays the allocator's
+    warm-up) and their peak memory; the busy share from a device profile
+    of the same grid cut to its first ``profile_slots`` slots (every slot
+    runs the same kernels, and a trace of ~10^6 launches takes minutes to
+    read); every episode (or ``sample``) against ``run_reference``; the
+    recompute oracle; the same runner on the CPU with identical
+    decisions."""
+    import numpy as np
+    import torch
+    from repro_torch.sim.engine import recompute_trace_latencies
+    runner = build("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = runner.run()
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res2 = runner.run()
+    second = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    E, T = runner.E, runner.T
+    for k in SIM_DECISIONS:
+        if not np.array_equal(res["trace"][k], res2["trace"][k]):
+            raise AssertionError(f"sim {label}: two card runs differ in {k}")
+    t0 = time.perf_counter()
+    prof = device_profile(build("cuda", profile_slots).run, host_ops=False)
+    out = {"card": smi, "episodes": E, "slots": T,
+           "profiled_slots": profile_slots,
+           "profile_s": time.perf_counter() - t0,
+           "first_run_s": first, "second_run_s": second,
+           "run_wall_s": res2["wall_s"],
+           "episode_slots_per_s": E * T / second,
+           "device_profile": prof, "busy_share": prof["busy_share"],
+           "peak_mem_bytes": int(peak)}
+    log(f"sim {label}: E = {E} x T = {T}: run {first:.2f} s, then "
+        f"{second:.2f} s ({E * T / second:.0f} episode-slots/s), busy "
+        f"{100 * prof['busy_share']:.1f} %, peak {peak / 2**20:.1f} MiB")
+    episodes = range(E) if sample is None else sample
+    out["vs_run_reference"] = _sim_against_reference(runner, res, episodes)
+    want = recompute_trace_latencies(res, runner.prof, runner.ncfg,
+                                     runner.fcfg.batch_per_device,
+                                     runner.fcfg.local_epochs)
+    out["recompute_rel_err"] = _sim_rel(res["trace"]["latency"], want)
+    if out["recompute_rel_err"] > SIM_RECOMPUTE_RTOL:
+        raise AssertionError(f"sim {label}: recompute "
+                             f"{out['recompute_rel_err']:.3e}")
+    xs, mask = res["trace"]["xs"], res["trace"]["mask"]
+    sums = np.where(mask, xs, 0).sum(axis=-1)
+    if not (sums[res["trace"]["csize"] > 0]
+            == runner.ncfg.n_subcarriers).all():
+        raise AssertionError(f"sim {label}: spectrum budget violated")
+    if cpu_check:
+        cpu = build("cpu")
+        t0 = time.perf_counter()
+        cres = cpu.run()
+        out["cpu_run_s"] = time.perf_counter() - t0
+        for k in SIM_DECISIONS:
+            if not np.array_equal(res["trace"][k], cres["trace"][k]):
+                bad = np.argwhere((res["trace"][k] != cres["trace"][k])
+                                  .reshape(E, T, -1).any(-1))[:3].tolist()
+                raise AssertionError(f"sim {label}: card and CPU differ in "
+                                     f"{k} at (episode, slot) {bad}")
+        out["cpu_max_rel_err"] = max(
+            _sim_rel(res["trace"][k], cres["trace"][k])
+            for k in ("latency", "cluster_latency", "energy", "f", "rate"))
+        if out["cpu_max_rel_err"] > SIM_RTOL:
+            raise AssertionError(f"sim {label}: card vs CPU "
+                                 f"{out['cpu_max_rel_err']:.3e}")
+    out["mean_latency_s"] = float(np.mean(res["trace"]["latency"]))
+    return out, res
+
+
+def sim_phase(smi: str) -> dict:
+    """The wireless-dynamics simulator of ``repro_torch.sim`` on the card,
+    at the sizes its benchmarks run:
+
+    (a) bench_simfleet's grid at the paper's size (N = C = 30, K = 5, cut
+        3, B = 16, L = 1): greedy and equal arms over 8 seeds x 150 slots
+        with forced departures and 400 J batteries; the proposed arm
+        (Gibbs + greedy every slot, SAA over cuts 1-3 every 10 slots,
+        Bernoulli churn with the floor, 2 reserve arrivals) over 8 seeds
+        x 60 slots. Every episode equals the port's looped
+        ``run_reference`` in decisions and within SIM_RTOL; the recompute
+        oracle within SIM_RECOMPUTE_RTOL; a CPU run of the same runner
+        makes the same decisions.
+    (b) fig. 7's Monte-Carlo grid: 300 runs x every LeNet cut, one slot,
+        greedy, i.i.d. draws (rho = 0) of the seed-0 population, each
+        run's random clustering keyed by its seed; FIG7_SAMPLE episodes
+        against ``run_reference``.
+    (c) ``SimEngine`` on examples/dynamics_sim.py's configuration: LeNet
+        trained on the card, 30 devices, 8 rounds; its trace recomputes
+        within SIM_TRACE_TOL.
+
+    Neither hand-written kernel runs on this path: both counts must read
+    0 after it."""
+    import json as _json
+
+    import numpy as np
+    import torch
+    from repro_torch import streams
+    from repro_torch.configs.base import CPSLConfig, SimCfg, SimFleetCfg
+    from repro_torch.core.channel import NetworkCfg
+    from repro_torch.core.profile import lenet_profile
+    from repro_torch.data.pipeline import CPSLDataset
+    from repro_torch.models import lenet
+    from repro_torch.models.lenet import LAYERS
+    from repro_torch.sim.dynamics import DynamicsCfg
+    from repro_torch.sim.engine import SimEngine, recompute_trace_latencies
+    from repro_torch.sim.fleet import SimFleetRunner
+
+    prof = lenet_profile()
+    modules = _kernel_modules()
+    for m in modules.values():
+        m.launches = 0
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+
+    def fleet(grid, dyn, net=SIM_NET, **kw):
+        def build(device, rounds=None):
+            g = dict(SIM_GRID, **grid)
+            if rounds:
+                g["rounds"] = rounds
+            return SimFleetRunner(prof, NetworkCfg(**net),
+                                  DynamicsCfg(**dyn), SimFleetCfg(**g),
+                                  device=device, **kw)
+        return build
+
+    out["bench"], _ = _sim_fleet_case(
+        "bench (greedy, equal)", fleet(SIM_BENCH, SIM_BENCH_DYN), smi, 15)
+    out["proposed"], res = _sim_fleet_case(
+        "proposed", fleet(SIM_PROPOSED, SIM_PROPOSED_DYN), smi, 5)
+    out["proposed"]["cuts_chosen"] = sorted(
+        int(v) for v in np.unique(res["trace"]["v"]))
+
+    # (b) fig. 7
+    cuts = tuple(range(1, prof.n_cuts + 1))
+    rng = np.random.default_rng(0)
+    perms = {s: rng.permutation(30) for s in range(FIG7_RUNS)}
+    fig7 = fleet(dict(rounds=1, seeds=tuple(range(FIG7_RUNS)),
+                      policies=("greedy",), cuts=cuts, mean_seed=0),
+                 dict(rho_snr=0.0, rho_f=0.0, seed=0),
+                 net=dict(n_devices=30), perms=perms)
+    E7 = FIG7_RUNS * len(cuts)
+    out["fig7"], res7 = _sim_fleet_case(
+        "fig7", fig7, smi, 1, cpu_check=False,
+        sample=list(range(0, E7, E7 // FIG7_SAMPLE)))
+    lat = np.asarray(res7["trace"]["latency"])[:, 0].reshape(len(cuts),
+                                                            FIG7_RUNS)
+    out["fig7"]["mean_latency_by_cut"] = lat.mean(axis=1).tolist()
+    out["fig7"]["p95_latency_by_cut"] = np.percentile(lat, 95,
+                                                      axis=1).tolist()
+    best = int(np.argmin(lat.mean(axis=1))) + 1
+    out["fig7"]["optimal_cut"] = [best, LAYERS[best - 1]]
+
+    # (c) SimEngine, examples/dynamics_sim.py's configuration
+    xtr, ytr, xte, yte, idx = _train_data()
+    ds = CPSLDataset(xtr, ytr, idx, batch=16)
+    ncfg = NetworkCfg(n_devices=30)
+    ccfg = CPSLConfig(cluster_size=5, local_epochs=1, batch_per_device=16)
+    trace_path = ROOT / "build" / "chip_smoke_sim_trace.jsonl"
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    scfg = SimCfg(rounds=8, epoch_len=4, cluster_size=5, saa_samples=2,
+                  saa_gibbs_iters=20, gibbs_iters=60, gibbs_chains=4,
+                  cuts=(2, 3, 4), trace_path=str(trace_path), seed=0)
+    dcfg = DynamicsCfg(rho_snr=0.9, rho_f=0.95, forced_departures={2: (7,)},
+                       p_arrive=0.25, min_devices=10, energy_budget_j=500.0,
+                       seed=0)
+    xte_d = torch.as_tensor(xte, device="cuda")
+    yte_d = torch.as_tensor(yte, device="cuda")
+
+    def eval_fn(cp, state):
+        params, _ = cp.export_params(state)
+        return lenet.accuracy(params, xte_d, yte_d)
+
+    eng = SimEngine("lenet", ds, prof, ncfg, dcfg, scfg, ccfg,
+                    eval_fn=eval_fn, device="cuda")
+    holder = {}
+
+    def run_engine():
+        holder["trace"] = eng.run(streams.model_generator(0, "cuda"))[1]
+
+    eprof = device_profile(run_engine, host_ops=False)
+    trace = holder["trace"]
+    lines = [_json.loads(x) for x in trace_path.read_text().splitlines()]
+    rounds = [r for r in lines if not r.get("skipped")]
+    want = recompute_trace_latencies(lines, prof, ncfg, 16, 1)
+    err = float(np.abs(np.array([r["latency_s"] for r in rounds])
+                       - want).max())
+    if err >= SIM_TRACE_TOL:
+        raise AssertionError(f"sim engine: trace recompute error {err}")
+    losses = [r["loss"] for r in rounds]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"sim engine: losses {losses}")
+    out["engine"] = {
+        "card": smi, "rounds": len(trace), "recompute_err": err,
+        "rounds_s": eng.timings, "losses": losses,
+        "acc": [r["eval"] for r in rounds],
+        "cuts": [r["v"] for r in rounds],
+        "events": sum(len(r["events"]) for r in lines),
+        "stale_rounds": sum(bool(r.get("stale")) for r in rounds),
+        "wall_s": eprof["wall_ms"] / 1e3, "busy_share": eprof["busy_share"],
+        "device_profile": eprof}
+    for t in eng.timings:
+        log(f"sim engine round {t['round']}: wall {t['wall_ms']:.1f} ms, "
+            f"plan {t['plan_ms']:.1f} ms, train {t['train_ms']:.1f} ms")
+    log(f"sim engine: losses {[round(x, 3) for x in losses]}, recompute "
+        f"err {err:.1e}, busy {100 * eprof['busy_share']:.1f} %")
+
+    out["hand_kernel_launches"] = {n: m.launches for n, m in modules.items()}
+    if any(out["hand_kernel_launches"].values()):
+        raise AssertionError("sim: a hand-written kernel ran: "
+                             + _json.dumps(out["hand_kernel_launches"]))
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def device_profile(fn, top: int = 8, host_ops: bool = True) -> dict:
     """One call of ``fn`` under torch.profiler: its host wall time, the
     device time summed over the kernels it ran (one stream, so the sum is
@@ -2298,6 +2583,7 @@ def main() -> int:
     train = train_phase()
     fleet = fleet_phase(train, smi)
     lm_train = lm_train_phase(smi)
+    sim = sim_phase(smi)
 
     def launches(name):
         """The kernel's launches in each main path's run, each counted
@@ -2309,6 +2595,7 @@ def main() -> int:
             if isinstance(r, dict) and "launches_per_step" in r:
                 out[f"{arch} training step"] = int(
                     r["launches_per_step"][name])
+        out["sim phase"] = sim["hand_kernel_launches"][name]
         return out
 
     mla = moe_shapes[0]
@@ -2353,6 +2640,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"lm_train": lm_train}))
+    print(json.dumps({"sim": sim}))
     print(json.dumps({"kernels": kernels}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

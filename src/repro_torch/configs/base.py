@@ -1,7 +1,7 @@
 """Model config dataclasses (the port's own copy of ``repro.configs.base``'s
 model part, ``CPSLConfig``, ``FleetConfig`` and the shape cells
-``ShapeCfg``/``SHAPES``; the simulator and mesh configs come with their
-slices).
+``ShapeCfg``/``SHAPES`` and the simulator's ``SimCfg``/``SimFleetCfg``;
+the mesh configs come with their slice).
 
 A ModelConfig fully describes one architecture in the zoo. Layer stacks are
 an optional unrolled ``prologue`` followed by a periodic ``pattern``
@@ -198,6 +198,100 @@ class FleetConfig:
     def n_replicas(self) -> int:
         return (len(self.seeds) * len(self.cluster_sizes)
                 * max(len(self.lr_scales), 1))
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass
+class SimCfg:
+    """Dynamic-network simulation (``repro_torch.sim``): round/timescale
+    layout of one end-to-end "train under dynamics" run."""
+    rounds: int = 20                 # small-timescale slots == CPSL rounds
+    epoch_len: int = 5               # rounds per large timescale epoch (Alg. 2 rerun)
+    cluster_size: int = 5            # target K; clusters shrink under churn
+    saa_samples: int = 3             # J network samples per SAA evaluation
+    saa_gibbs_iters: int = 40        # Gibbs iters inside the SAA inner loop
+    gibbs_iters: int = 120           # Gibbs iters for the per-slot plan
+    gibbs_chains: int = 1            # lockstep Gibbs replicas per plan
+                                     # (best-of-R; chain 0 == single-chain
+                                     # stream, so 1 reproduces the looped
+                                     # planner bit-exactly)
+    cuts: Optional[Tuple[int, ...]] = None  # candidate cut layers (None = all)
+    trace_path: Optional[str] = None # JSONL trace destination
+    seed: int = 0
+    # -- population-scale planning knobs -----------------------------------
+    plan_mode: str = "flat"          # "flat" = one Gibbs over all devices;
+                                     # "bucketed" = hierarchical two-level
+                                     # clustering (bucket_devices + per-
+                                     # bucket lockstep Gibbs). With
+                                     # n <= bucket_size the bucketed plan
+                                     # is bit-identical to flat (tested)
+    bucket_size: int = 320           # target devices per coarse bucket
+    spectrum_topk: int = 0           # >0: greedy Alg. 3 argmins scan only
+                                     # the k worst-score devices per step
+                                     # (k >= cluster size is exact)
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class SimFleetCfg:
+    """Episode fleet: E = cuts x policies x cluster_sizes x seeds dynamic-
+    network episodes priced as one batched float64 program
+    (``repro_torch.sim.fleet.SimFleetRunner``).
+
+    Episodes differ only in data — per-episode profile constants (cut),
+    policy/cluster-size selectors, device means and innovation streams
+    (seed) — so the whole grid runs as one set of tensor operations per
+    slot. Episodes with the same ``seed`` share their network realization
+    (means + fading/compute innovations, and the churn/planner draws),
+    which gives common-random-number coupling across the other grid axes
+    (the fig. 7 cut sweep and the fig. 8(b) three-arm comparison rely on
+    it).
+
+    The ``proposed`` policy is the paper's full two-timescale controller:
+    per-slot Gibbs clustering with embedded greedy (Alg. 3/4,
+    ``gibbs_iters`` sweeps, best of ``gibbs_chains`` lockstep chains) and
+    — when ``saa_cuts`` is set — Alg. 2 SAA cut re-selection every
+    ``epoch_len`` slots over the (cut x sample x chain) grid around the
+    episode's device means. ``saa_cuts=None`` keeps the episode's spec
+    cut fixed (pure small-timescale planning)."""
+    rounds: int = 20                        # slots T per episode
+    seeds: Tuple[int, ...] = (0,)
+    policies: Tuple[str, ...] = ("greedy",)  # equal | greedy | proposed
+    cluster_sizes: Tuple[int, ...] = (5,)   # target K per episode
+    cuts: Tuple[int, ...] = (3,)            # cut layer v per episode
+    batch_per_device: int = 16              # B in the eq. 15-25 cost model
+    local_epochs: int = 1                   # L
+    mean_seed: Optional[int] = None         # shared device_means seed;
+                                            # None = per-episode seed
+    # -- proposed-policy (two-timescale controller) knobs ------------------
+    epoch_len: int = 5                      # slots per large-timescale epoch
+    gibbs_iters: int = 120                  # Alg. 4 sweeps per slot plan
+    gibbs_chains: int = 1                   # best-of-R lockstep chains
+    gibbs_delta: float = 1e-4               # Metropolis temperature
+    saa_samples: int = 3                    # J network samples per SAA cell
+    saa_gibbs_iters: int = 40               # Alg. 4 sweeps inside SAA
+    saa_cuts: Optional[Tuple[int, ...]] = None  # Alg. 2 candidate cuts;
+                                            # None = no SAA (fixed spec cut)
+    # -- stochastic-churn support ------------------------------------------
+    n_reserve: int = 0                      # reserve device rows for
+                                            # Bernoulli arrivals (p_arrive)
+    min_devices_floor: bool = False         # honor DynamicsCfg.min_devices
+                                            # (opt-in: False keeps every
+                                            # departure/depletion executing)
+    cost_chunk: int = 0                     # >0: stream the greedy
+                                            # candidate tensors in tiles of
+                                            # this many clusters (bounds
+                                            # peak memory; decisions
+                                            # unchanged, tested)
+
+    @property
+    def n_episodes(self) -> int:
+        return (len(self.cuts) * len(self.policies)
+                * len(self.cluster_sizes) * len(self.seeds))
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)

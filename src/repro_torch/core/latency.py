@@ -18,8 +18,9 @@ from dataclasses import dataclass
 from typing import Sequence
 
 import numpy as np
+import torch
 
-from repro_torch import streams
+from repro_torch import resolve_device, streams
 from repro_torch.core.channel import NetworkCfg, NetworkState
 
 
@@ -315,3 +316,218 @@ def fl_round_latency(net: NetworkState, ncfg: NetworkCfg, prof: CutProfile,
                + xi_model / (x * net.rate))
     return float(np.max(per_dev))
 
+
+
+# --------------------------------------------------------------------------
+# tensor cost engine — eqs. (15)-(25), operand order of cluster_latency
+# --------------------------------------------------------------------------
+
+_CST_KEYS = ("xi_d", "xi_s", "xi_g", "gamma_dF", "gamma_dB",
+             "gamma_sF", "gamma_sB")
+
+
+def _red(a):
+    """A constant at the post-max rank (its singleton K axis dropped)."""
+    return a[..., 0] if getattr(a, "ndim", 0) else a
+
+
+def _cost_terms(cst, fd, rd, mask, csize, *, B: int, L: int, C: int,
+                f_server_kappa: float, kappa: float,
+                physical_gradients: bool = False) -> dict:
+    """The allocation-independent terms of ``_cluster_latency_j``, each
+    computed as its expression there computes it. The greedy allocator
+    builds them once per call and re-prices only the allocation-dependent
+    terms at each step (``_cost_with``).
+
+    The slot mask is folded in here: ``bd`` and ``tau_u`` carry -inf in
+    padded slots, so every phase sum is -inf there and the phase maxima
+    need no masking of their own. A real slot's sums are the same
+    operations on the same operands, so the values are the same bits."""
+    f = fd * kappa
+    xi_g = cst["xi_g"] * (B if physical_gradients else 1.0)
+    tau_b = cst["xi_d"] / (C * rd)                   # (15)
+    tau_d = B * cst["gamma_dF"] / f                  # (16)
+    tau_e = csize * B * (_red(cst["gamma_sF"]) + _red(cst["gamma_sB"])) \
+        / f_server_kappa                             # (18)
+    tau_u = B * cst["gamma_dB"] / f                  # (21)
+    ninf = float("-inf")
+    return {"rd": rd, "bd": torch.where(mask, tau_b + tau_d, ninf),
+            "tau_d": tau_d, "tau_e": tau_e,
+            "tau_u": torch.where(mask, tau_u, ninf),
+            "num_s": B * cst["xi_s"], "num_g": xi_g, "num_t": cst["xi_d"],
+            "L": L, "live": csize > 0}
+
+
+def _cost_with(terms: dict, xs):
+    """Per-cluster latency D_m from ``_cost_terms`` and an allocation.
+    With L = 1 the inner phase drops out: (L - 1) * d_I is +0.0 and
+    d_S + 0.0 is d_S, so D = d_S + d_E is the same value."""
+    xr = xs * terms["rd"]
+    tau_s = terms["num_s"] / xr                      # (17)
+    tau_g = terms["num_g"] / xr                      # (20)
+    tau_t = terms["num_t"] / xr                      # (23)
+    gu = tau_g + terms["tau_u"]
+    d_S = (terms["bd"] + tau_s).amax(dim=-1) + terms["tau_e"]       # (19)
+    d_E = (gu + tau_t).amax(dim=-1)                                 # (24)
+    if terms["L"] == 1:
+        D = d_S + d_E
+    else:
+        d_I = (gu + terms["tau_d"] + tau_s).amax(dim=-1) \
+            + terms["tau_e"]                                        # (22)
+        D = d_S + (terms["L"] - 1) * d_I + d_E
+    return D.where(terms["live"], 0.0)
+
+
+def _cluster_latency_j(cst, fd, rd, xs, mask, csize, *, B: int, L: int,
+                       C: int, f_server_kappa: float, kappa: float,
+                       physical_gradients: bool = False):
+    """Masked tensor port of ``cluster_latency`` over (..., K) cluster
+    rows (the reference's jnp ``_cluster_latency_j``).
+
+    ``cst``: per-cut profile constants, float64 tensors whose leading
+    axes end in singleton(s) so they broadcast against the (..., K)
+    per-device terms; ``fd``/``rd``: gathered device compute / subcarrier
+    rate; ``xs``: subcarrier allocation (padded slots must be >= 1);
+    ``mask``: real device slots; ``csize``: real cluster size at the
+    REDUCED rank (broadcastable against the (...,) per-cluster output; 0
+    = padded cluster -> latency 0). Every expression keeps the operand
+    order of the scalar NumPy path, term by term. Tensors stay on their
+    device."""
+    terms = _cost_terms(cst, fd, rd, mask, csize, B=B, L=L, C=C,
+                        f_server_kappa=f_server_kappa, kappa=kappa,
+                        physical_gradients=physical_gradients)
+    return _cost_with(terms, xs)
+
+
+def _sum_left_to_right(per_cluster):
+    """(..., M) -> (...,) accumulated m = 0, 1, ... exactly like the
+    Python ``sum`` in ``round_latency`` (padded clusters add exact 0.0,
+    a bitwise no-op)."""
+    total = per_cluster[..., 0]
+    for m in range(1, per_cluster.shape[-1]):
+        total = total + per_cluster[..., m]
+    return total
+
+
+class PartitionBatchJ:
+    """Tensor port of :class:`PartitionBatch`: scores R full M-cluster
+    partitions — optionally per-replica cuts and stacked network draws —
+    through :func:`_cluster_latency_j` on ``device`` (``cuda`` unless the
+    caller asks for ``cpu``; no CUDA raises).
+
+    Same constructor and ``cluster_latencies`` / ``latencies`` contract
+    as the NumPy class (cluster-by-cluster ``sizes`` layout, (R, N)
+    allocations, row broadcasting, NumPy results); at the default
+    ``dtype=np.float64`` values agree with it to tight float64 tolerance
+    on identical inputs (tests/test_torch_simfleet.py pins randomized
+    (v, sizes, draws) grids).
+
+    Population-scale knobs:
+
+    * ``dtype=np.float32`` halves the cost-tensor footprint; parity with
+      float64 is tolerance-tested rather than exact.
+    * ``chunk_size=c`` evaluates :meth:`cluster_latencies` in tiles of c
+      replica rows, bounding the per-term intermediates at (c, M, Kmax)
+      instead of (R, M, Kmax). Rows are independent, so the results are
+      bit-identical to the unchunked path for every chunk size."""
+
+    def __init__(self, v, net: NetworkState, ncfg: NetworkCfg,
+                 prof: CutProfile, B: int, L: int, sizes: Sequence[int],
+                 device_idx: np.ndarray, net_rows=None,
+                 physical_gradients: bool = False,
+                 dtype=np.float64, chunk_size: int | None = None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        sizes = np.asarray(sizes, dtype=np.int64)
+        dev = np.asarray(device_idx, dtype=np.int64)
+        if dev.ndim == 1:
+            dev = dev[None, :]
+        assert dev.shape[1] == int(sizes.sum()), \
+            "device_idx must be laid out cluster-by-cluster per `sizes`"
+        self.M, self.Kmax = len(sizes), int(sizes.max())
+        self.N = int(sizes.sum())
+        self.sizes = sizes
+        self.starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+        self.B, self.L = B, L
+        self.C = ncfg.n_subcarriers
+        self.kappa = float(ncfg.kappa)
+        self.f_server_kappa = ncfg.f_server * ncfg.kappa
+        self.physical = physical_gradients
+        self.dtype = getattr(torch, np.dtype(dtype).name)
+        self.chunk_size = int(chunk_size) if chunk_size else 0
+
+        v_arr = np.asarray(v)
+        cst = {k: np.asarray(getattr(prof, k), dtype=np.float64)[v_arr - 1]
+               for k in _CST_KEYS}
+        f_all = np.asarray(net.f, dtype=np.float64)
+        r_all = np.asarray(net.rate, dtype=np.float64)
+        if f_all.ndim == 1:
+            fd, rd = f_all[dev], r_all[dev]
+        else:
+            rows = np.asarray(net_rows, dtype=np.int64)[:, None]
+            fd, rd = f_all[rows, dev], r_all[rows, dev]
+
+        def put(a):
+            return torch.as_tensor(np.array(a, np.float64)).to(
+                self.device, self.dtype)
+
+        # (R?, M, Kmax) padded views + static slot masks
+        self._mask = torch.as_tensor(
+            self._to_slots(np.ones((1, self.N)), fill=0.0)[0] > 0.5,
+            device=self.device)
+        self._csize = torch.as_tensor(sizes, device=self.device)
+        self._fd = put(self._to_slots(fd, fill=1.0))
+        self._rd = put(self._to_slots(rd, fill=1.0))
+        self._cst = {k: put(a)[..., None, None] if a.ndim else put(a)
+                     for k, a in cst.items()}
+
+    def _to_slots(self, arr: np.ndarray, fill: float) -> np.ndarray:
+        """(R, N) cluster-by-cluster layout -> (R, M, Kmax) padded."""
+        arr = np.asarray(arr, dtype=np.float64)
+        if arr.ndim == 1:
+            arr = arr[None, :]
+        out = np.full((arr.shape[0], self.M, self.Kmax), fill)
+        for m, (s, k) in enumerate(zip(self.starts, self.sizes)):
+            out[:, m, :k] = arr[:, s:s + k]
+        return out
+
+    def _eval(self, x, cst, fd, rd):
+        return _cluster_latency_j(
+            cst, fd, rd, x, self._mask, self._csize,
+            B=self.B, L=self.L, C=self.C,
+            f_server_kappa=self.f_server_kappa, kappa=self.kappa,
+            physical_gradients=self.physical)
+
+    def _eval_chunked(self, x):
+        """Replica rows in tiles of ``chunk_size``: per-term
+        intermediates are bounded at (chunk, M, Kmax)."""
+        R = max(x.shape[0], self._fd.shape[0])
+
+        def rows(a, lo, hi):
+            return a.expand((R,) + tuple(a.shape[1:]))[lo:hi]
+
+        out = []
+        for lo in range(0, R, self.chunk_size):
+            hi = min(lo + self.chunk_size, R)
+            cst = {k: rows(a, lo, hi) if a.ndim else a
+                   for k, a in self._cst.items()}
+            out.append(self._eval(rows(x, lo, hi), cst,
+                                  rows(self._fd, lo, hi),
+                                  rows(self._rd, lo, hi)))
+        return torch.cat(out)
+
+    def cluster_latencies(self, xs: np.ndarray) -> np.ndarray:
+        """(R, N) allocations -> (R, M) per-cluster latencies D_m."""
+        x = torch.as_tensor(self._to_slots(np.asarray(xs, np.float64),
+                                           fill=1.0)).to(self.device,
+                                                         self.dtype)
+        if self.chunk_size:
+            D = self._eval_chunked(x)
+        else:
+            D = self._eval(x, self._cst, self._fd, self._rd)
+        return D.cpu().numpy()
+
+    def latencies(self, xs: np.ndarray) -> np.ndarray:
+        """(R, N) allocations -> (R,) round totals (left-to-right cluster
+        accumulation, as ``PartitionBatch.latencies``)."""
+        return _sum_left_to_right(self.cluster_latencies(xs))

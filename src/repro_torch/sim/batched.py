@@ -52,8 +52,8 @@ __all__ = ["BatchedClusterEvaluator", "PartitionBatch",
 
 def balanced_sizes(n: int, k: int) -> List[int]:
     """Partition n devices into ceil(n/k) clusters of near-equal size
-    (the reference keeps it in ``sim.controller``, which comes with
-    slice 7)."""
+    (the reference keeps it in ``sim.controller``, which re-exports this
+    one)."""
     if n <= 0:
         return []
     m = max(1, -(-n // k))

@@ -14,8 +14,9 @@ Two kinds:
   patterns that can seed one stream. NumPy's ``SeedSequence`` pads its
   entropy with zeros to four words, so ``(a, b, c)`` and ``(a, b, c, 0)``
   draw the same numbers: patterns are compared padded with a literal 0 to
-  four positions. The port's own streams (``straggler``) are registered
-  beside copies of every reference pattern and alias none of them. The
+  four positions. The port's own streams (``straggler``,
+  ``fleet_innovations``) are registered beside copies of every reference
+  pattern and alias none of them. The
   reference's fleet patterns can alias its ``bucket_chain`` and
   ``lm_batch`` streams at episodes 6151 and 7433; those pairs are
   ``INHERITED_OVERLAPS``, kept because the batches' bit-equality with the
@@ -139,6 +140,11 @@ FLEET_RESERVE_TAG, BUCKET_TAG, LM_TAG = 9967, 6151, 7433
 #: and ``lm_batch`` (and from the reserve means)
 STRAGGLER_TAG = 8467
 ROUND_MAX = min(BUCKET_TAG, LM_TAG, FLEET_RESERVE_TAG)
+#: the port's fleet innovations, (seed, episode, FLEET_INNOV_TAG); episode
+#: seeds are bounded like the straggler rounds, which keeps the pattern
+#: apart from ``bucket_chain``, ``lm_batch`` and the reserve means
+FLEET_INNOV_TAG = 23
+EPISODE_MAX = ROUND_MAX
 
 for _spec in (
         StreamSpec("chain", "tuple", (Sym("seed"), Sym("chain", 1, CHAIN_MAX)),
@@ -170,15 +176,29 @@ for _spec in (
                    "reference draws its keep mask with jax.random.bernoulli "
                    "on the state's key, which torch cannot reproduce; the "
                    "port draws the table on the host and passes it to the "
-                   "looped and the fused round alike.")):
+                   "looped and the fused round alike."),
+        StreamSpec("fleet_innovations", "tuple",
+                   (Sym("seed"), Sym("episode", 0, EPISODE_MAX),
+                    FLEET_INNOV_TAG),
+                   "The port's fleet AR(1) innovations (T + 1, 2, N) per "
+                   "episode seed. The reference draws them with "
+                   "jax.random.normal on fold_in(PRNGKey(seed), episode), "
+                   "which torch cannot reproduce.")):
     _register(_spec)
 
 
-def chain_rng(seed: int, chain: int) -> np.random.Generator:
+def chain_key(seed: int, chain: int):
+    """The raw key for Gibbs chain ``chain``: ``seed`` itself for chain
+    0 (the flat stream), ``(seed, chain)`` otherwise; planners thread it
+    through ``gibbs_clustering(seed=...)``."""
     if chain == 0:
-        return np.random.default_rng(seed)
+        return seed
     assert 0 < chain < CHAIN_MAX, chain
-    return np.random.default_rng((int(seed), int(chain)))
+    return (int(seed), int(chain))
+
+
+def chain_rng(seed: int, chain: int) -> np.random.Generator:
+    return np.random.default_rng(chain_key(seed, chain))
 
 
 def bucket_chain_rng(seed: int, bucket: int, chain: int) \
@@ -195,6 +215,34 @@ def straggler_rng(seed: int, rnd: int) -> np.random.Generator:
     if not 0 <= rnd < ROUND_MAX:
         raise ValueError(f"straggler round {rnd} outside [0, {ROUND_MAX})")
     return np.random.default_rng((int(seed), int(rnd), STRAGGLER_TAG))
+
+
+def fleet_reserve_means_rng(mean_seed: int) -> np.random.Generator:
+    return np.random.default_rng((int(mean_seed), FLEET_RESERVE_TAG))
+
+
+def fleet_departures_rng(seed: int, episode: int) -> np.random.Generator:
+    return np.random.default_rng((int(seed), int(episode), FLEET_DEPART_TAG))
+
+
+def fleet_arrivals_rng(seed: int, episode: int) -> np.random.Generator:
+    return np.random.default_rng((int(seed), int(episode), FLEET_ARRIVE_TAG))
+
+
+def fleet_gibbs_rng(seed: int, episode: int) -> np.random.Generator:
+    return np.random.default_rng((int(seed), int(episode), FLEET_GIBBS_TAG))
+
+
+def fleet_saa_rng(seed: int, episode: int) -> np.random.Generator:
+    return np.random.default_rng((int(seed), int(episode), FLEET_SAA_TAG))
+
+
+def fleet_innovations_rng(seed: int, episode: int) -> np.random.Generator:
+    """The fleet's AR(1) innovations of episode seed ``episode``."""
+    if not 0 <= episode < EPISODE_MAX:
+        raise ValueError(
+            f"fleet episode seed {episode} outside [0, {EPISODE_MAX})")
+    return np.random.default_rng((int(seed), int(episode), FLEET_INNOV_TAG))
 
 
 def lm_batch_rng(seed: int, slot: int, device: int) -> np.random.Generator:
@@ -224,6 +272,8 @@ for _name, _doc in (
         ("data", "Dataset synthesis and sequential CPSLDataset draws."),
         ("network_means", "device_means(cfg, seed)."),
         ("network_draw", "One-shot sample_network draw."),
+        ("dynamics", "NetworkProcess innovations: seed + 1 (device_means "
+                     "consumed seed)."),
         ("gibbs", "Alg. 4 Gibbs sampler: default_rng(seed)."),
         ("layout", "random_clustering layouts: default_rng(seed)."),
         ("saa_network", "SAA cut selection's network draws: seed + 1."),
@@ -259,6 +309,10 @@ def network_means_rng(seed: int) -> np.random.Generator:
 
 def network_draw_rng(seed: int) -> np.random.Generator:
     return np.random.default_rng(seed)
+
+
+def dynamics_rng(seed: int) -> np.random.Generator:
+    return np.random.default_rng(seed + 1)
 
 
 def gibbs_rng(seed) -> np.random.Generator:

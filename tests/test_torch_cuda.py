@@ -893,3 +893,96 @@ def test_whisper_split_round_on_card_matches_cpu(cuda):
             assert err <= 1e-4, err
         else:
             assert torch.equal(b.cpu(), a)
+
+
+# --------------------------------------------------------------------------
+# the wireless-dynamics simulator on the card (no hand-written kernel)
+# --------------------------------------------------------------------------
+
+def _sim_fleet_runner(device, **grid):
+    from repro_torch.configs.base import SimFleetCfg
+    from repro_torch.core.channel import NetworkCfg
+    from repro_torch.core.profile import lenet_profile
+    from repro_torch.sim.dynamics import DynamicsCfg
+    from repro_torch.sim.fleet import SimFleetRunner
+    fcfg = SimFleetCfg(**dict(dict(
+        rounds=8, seeds=(0, 1), policies=("equal", "greedy", "proposed"),
+        cluster_sizes=(3, 4), cuts=(2,), epoch_len=3, gibbs_iters=6,
+        gibbs_chains=2, saa_samples=2, saa_gibbs_iters=4, saa_cuts=(1, 2, 3),
+        n_reserve=2, min_devices_floor=True), **grid))
+    dcfg = DynamicsCfg(rho_snr=0.9, rho_f=0.95, seed=0, p_depart=0.08,
+                       p_arrive=0.3, min_devices=4, energy_budget_j=12.0,
+                       forced_departures={2: (1,), 4: (0, 5)})
+    return SimFleetRunner(lenet_profile(), NetworkCfg(n_devices=12,
+                                                      n_subcarriers=15),
+                          dcfg, fcfg, device=device)
+
+
+@pytest.mark.parametrize("chunk", [0, 2])
+def test_sim_fleet_card_matches_cpu(cuda, chunk):
+    """The small fleet grid (all three policies, SAA, churn with the
+    floor, arrivals, energy) on the card and on the CPU: identical
+    decisions, floats within 1e-9 relative, and the card's latencies
+    against the port's looped NumPy oracle."""
+    card = _sim_fleet_runner(cuda, cost_chunk=chunk).run()["trace"]
+    cpu_runner = _sim_fleet_runner("cpu", cost_chunk=chunk)
+    cpu = cpu_runner.run()["trace"]
+    for k in ("dev", "mask", "csize", "xs", "v", "active", "n_active"):
+        np.testing.assert_array_equal(card[k], cpu[k], err_msg=k)
+    for k in ("latency", "cluster_latency", "energy", "f", "rate"):
+        rel = np.abs(card[k] - cpu[k]) / np.maximum(np.abs(cpu[k]), 1e-300)
+        assert rel.max() <= 1e-9, k
+    want = cpu_runner.run_looped()["latency"]
+    assert (np.abs(card["latency"] - want) / want).max() <= 1e-9
+
+
+def test_partition_batch_j_card_matches_numpy(cuda):
+    from repro_torch.core.channel import (NetworkCfg, NetworkState,
+                                          device_means, sample_network)
+    from repro_torch.core.latency import PartitionBatch, PartitionBatchJ
+    from repro_torch.core.profile import lenet_profile
+    prof = lenet_profile()
+    rng = np.random.default_rng(1)
+    sizes, R, S = [4, 3, 3], 6, 3
+    ncfg = NetworkCfg(n_devices=10, n_subcarriers=20)
+    mu = device_means(ncfg, 1)
+    nets = [sample_network(ncfg, *mu, rng) for _ in range(S)]
+    snet = NetworkState(f=np.stack([n.f for n in nets]),
+                        rate=np.stack([n.rate for n in nets]))
+    v = rng.integers(1, prof.n_cuts + 1, size=R)
+    rows = rng.integers(0, S, size=R)
+    dev = np.stack([rng.permutation(10) for _ in range(R)])
+    xs = rng.integers(1, 7, size=(R, 10))
+    want = PartitionBatch(v, snet, ncfg, prof, 16, 2, sizes, dev,
+                          net_rows=rows)
+    for chunk in (None, 4):
+        got = PartitionBatchJ(v, snet, ncfg, prof, 16, 2, sizes, dev,
+                              net_rows=rows, chunk_size=chunk)
+        assert got._fd.device.type == "cuda"
+        np.testing.assert_allclose(got.cluster_latencies(xs),
+                                   want.cluster_latencies(xs), rtol=1e-12)
+        np.testing.assert_allclose(got.latencies(xs), want.latencies(xs),
+                                   rtol=1e-12)
+
+
+def test_sim_engine_card_plans(cuda):
+    """A 3-round ``SimEngine`` with ``train=False`` on the card makes the
+    CPU's decisions (its planner is NumPy on the host either way)."""
+    from repro_torch.configs.base import CPSLConfig, SimCfg
+    from repro_torch.core.channel import NetworkCfg
+    from repro_torch.core.profile import lenet_profile
+    from repro_torch.sim.dynamics import DynamicsCfg
+    from repro_torch.sim.engine import SimEngine
+    from repro_torch.telemetry import jsonable
+    traces = []
+    for dev in (cuda, "cpu"):
+        eng = SimEngine("lenet", None, lenet_profile(),
+                        NetworkCfg(n_devices=12, n_subcarriers=24),
+                        DynamicsCfg(p_depart=0.1, min_devices=4, seed=2),
+                        SimCfg(rounds=3, epoch_len=2, cluster_size=3,
+                               saa_samples=2, saa_gibbs_iters=5,
+                               gibbs_iters=10, cuts=(2, 3)),
+                        CPSLConfig(cluster_size=3), train=False, device=dev)
+        assert eng.device.type == torch.device(dev).type
+        traces.append(jsonable(eng.run()[1]))
+    assert traces[0] == traces[1] and len(traces[0]) == 3

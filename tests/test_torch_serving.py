@@ -420,7 +420,7 @@ def test_params_from_numpy_bf16_leaves():
 
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py", ROOT / "examples" / "torch_dynamics_sim.py"]
 
 
 def test_port_never_imports_jax_or_reference():
@@ -444,7 +444,10 @@ def test_port_never_imports_jax_or_reference():
             "repro_torch.kernels.ssd.ops, repro_torch.launch.train, "
             "repro_torch.train.trainer, repro_torch.core.cpsl, "
             "repro_torch.core.profile, repro_torch.checkpoint.checkpointer, "
-            "repro_torch.convert, repro_torch.sim.batched, chip_smoke; "
+            "repro_torch.convert, repro_torch.sim.batched, "
+            "repro_torch.telemetry, repro_torch.sim.dynamics, "
+            "repro_torch.sim.controller, repro_torch.sim.engine, "
+            "repro_torch.sim.fleet, chip_smoke; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(

@@ -95,11 +95,19 @@ failures is caught:
    port's looped NumPy ``run_reference`` and, for the bench grids, a CPU
    ``run``; ``SimEngine`` training LeNet at examples/dynamics_sim.py's
    setting, its trace recomputed. It launches no hand-written kernel.
+11. rt: the CPSL deployment runtime (``repro_torch.rt``): 30 device
+   worker processes, each its own CUDA context, and the server in this
+   process over localhost sockets at the paper's configuration (6
+   clusters of 5, B = 16, 2 rounds), bit-equal to ``loopback_reference``
+   on the card; examples/rt_loopback.py's deployment with its fault
+   round (device 3 dropped in round 1) and its crossval; the chaos drill
+   (a worker and the server SIGKILLed, ``run_elastic`` resuming from the
+   WAL) bit-equal to the fault-free reference. No hand-written kernel.
 
 Prints one ``{"moe_serve": {...}}`` line, one ``{"whisper_serve":
 {...}}`` line, one ``{"train": {...}}`` line, one ``{"fleet": {...}}``
 line, one ``{"lm_train": {...}}`` line, one ``{"sim": {...}}`` line, one
-``{"kernels": [...]}`` line,
+``{"rt": {...}}`` line, one ``{"kernels": [...]}`` line,
 the script's seconds and, last, the device line ``{"ok": true, "device":
 {...}}``.
 """
@@ -2518,6 +2526,213 @@ def sim_phase(smi: str) -> dict:
     return out
 
 
+# arXiv:2204.08119 §VIII-A at PERF.md §4's LeNet sizes (as train_phase):
+# 30 device worker processes, 6 clusters of 5, B = 16, cut 3, L = 1
+RT_PAPER = dict(n_devices=30, cluster_size=5, rounds=2, cut=3,
+                local_epochs=1, batch=16, n_train=8000, n_test=1500,
+                classes_per_device=3, samples_per_device=180, seed=0)
+# examples/rt_loopback.py's deployment: eq. 15-25 delays injected at 0.05,
+# device 3's round-1 model upload dropped
+RT_EXAMPLE = dict(n_devices=4, cluster_size=2, rounds=3, local_epochs=1,
+                  batch=8, n_train=600, n_test=64, samples_per_device=80,
+                  seed=0, delay_scale=0.05, phase_timeout_s=6.0,
+                  rpc_timeout_s=1.0, retries=2, backoff_s=0.2)
+# its --chaos drill
+RT_CHAOS = dict(n_devices=2, cluster_size=2, rounds=3, local_epochs=1,
+                batch=4, n_train=400, n_test=64, samples_per_device=60,
+                seed=0, phase_timeout_s=60.0, rejoin_timeout_s=60.0,
+                reconnect_timeout_s=60.0, respawn=True, reconnect=True,
+                cluster_retries=2)
+RT_QOS_PHASES = ("fwd", "grad_wait", "bwd", "server", "upload", "model_up")
+
+
+def _rt_bit_equal(label: str, got, want):
+    import torch
+    from repro_torch import tree
+    for key in ("dev", "dev_opt", "srv", "srv_opt", "step"):
+        for a, b in zip(tree.leaves(got[key]), tree.leaves(want[key]),
+                        strict=True):
+            if a.dtype != b.dtype or a.shape != b.shape \
+                    or not torch.equal(a, b):
+                raise AssertionError(
+                    f"rt {label}: {key} differs from loopback_reference")
+
+
+class _SmiSampler:
+    """The card's memory in use per ``nvidia-smi`` (every process's
+    context and allocations, which ``max_memory_allocated`` of one
+    process does not see), sampled every ``every`` s in a thread."""
+
+    def __init__(self, every: float = 1.0):
+        import threading
+        self.every, self.mib = every, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while True:
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, check=True, timeout=30).stdout
+            self.mib.append(float(out.splitlines()[0]))
+            if self._stop.wait(self.every):
+                return
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+
+def rt_phase(smi: str) -> dict:
+    """The CPSL deployment runtime (``repro_torch.rt``) on the card: real
+    device-worker processes, each its own CUDA context, and a server in
+    this process, over localhost sockets.
+
+    (a) RT_PAPER, the paper's configuration as a deployment: 30 workers,
+        6 clusters of 5 in sequence, 2 rounds. The final dev, dev_opt,
+        srv, srv_opt and step must equal the port's ``loopback_reference``
+        on the card bit for bit (deterministic cuDNN, no TF32, in every
+        process). Seconds to all-READY (spawn, import torch, CUDA init,
+        warm-up), wall seconds per round, the median QoS seconds per
+        phase, the server's peak memory, the card's memory in use per
+        nvidia-smi, and the hand kernels' launches in this (the server's)
+        process, which must be 0.
+    (b) RT_EXAMPLE: round 1 must drop exactly device 3, rounds 0 and 2
+        nobody; ``crossval_report``'s summary.
+    (c) RT_CHAOS under ``chaos_schedule(seed=7, kill_workers=1,
+        kill_server=1)`` through ``run_elastic`` with a WAL in a temporary
+        directory: every round recorded, nobody dropped, the final state
+        bit-equal to ``loopback_reference``; the restarts (server resumes
+        and recovered workers) and the wall seconds."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.rt.crossval import crossval_report
+    from repro_torch.rt.faults import FaultRule, chaos_schedule
+    from repro_torch.rt.orchestrator import (Orchestrator, RTConfig,
+                                             loopback_reference,
+                                             run_elastic, run_loopback)
+    from repro_torch.rt.protocol import MsgType
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()         # earlier phases' cached blocks
+    out = {"card": smi}
+    modules = _kernel_modules()
+
+    def rounds_of(records):
+        return [r for r in records if r.get("kind") != "qos"]
+
+    # (a) the paper's configuration
+    cfg = RTConfig(device="cuda", **RT_PAPER)
+    for m in modules.values():
+        m.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    orch = Orchestrator(cfg)
+    with _SmiSampler() as smi_mem:
+        t0 = time.perf_counter()
+        try:
+            orch.start()
+            ready_s = time.perf_counter() - t0
+            state, records = orch.run()
+        finally:
+            orch.stop()
+        total_s = time.perf_counter() - t0
+    launches = {n: m.launches for n, m in modules.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ref, ref_loss = loopback_reference(cfg)
+    _rt_bit_equal("paper", state, ref)
+    rounds = rounds_of(records)
+    if [r["dropped"] for r in rounds] != [[]] * cfg.rounds \
+            or rounds[-1]["loss"] != ref_loss:
+        raise AssertionError(f"rt paper: rounds {rounds}")
+    if any(launches.values()):
+        raise AssertionError(f"rt: a hand-written kernel ran: {launches}")
+    qos = [q for q in records if q.get("kind") == "qos"]
+    out["paper"] = {
+        "card": smi, "config": RT_PAPER, "bit_equal": True,
+        "ready_s": ready_s, "run_s": total_s,
+        "round_wall_s": [r["wall_s"] for r in rounds],
+        "losses": [r["loss"] for r in rounds],
+        "qos_median_s": {ph: float(np.median([q["t_s"] for q in qos
+                                              if q["phase"] == ph]))
+                         for ph in RT_QOS_PHASES},
+        "qos_n": {ph: sum(q["phase"] == ph for q in qos)
+                  for ph in RT_QOS_PHASES},
+        # each worker's startup before READY: the data build, and the
+        # warm-up that creates its CUDA context
+        "startup_median_s": {ph: float(np.median([q["t_s"] for q in qos
+                                                  if q["phase"] == ph]))
+                             for ph in ("data", "warmup")},
+        "server_peak_gb": peak_gb,
+        "card_mem_used_mib_max": max(smi_mem.mib),
+        "card_mem_used_mib_samples": len(smi_mem.mib),
+        "hand_kernel_launches": launches}
+    log(f"rt paper: ready {ready_s:.1f} s, rounds "
+        f"{[round(r['wall_s'], 3) for r in rounds]} s, bit-equal, card "
+        f"memory up to {max(smi_mem.mib):.0f} MiB")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) the example's deployment with its fault round
+        cfg = RTConfig(device="cuda", trace_path=f"{tmp}/example.jsonl",
+                       faults={3: [FaultRule(
+                           "drop", msg_types=(int(MsgType.AGG),),
+                           rounds=(1,))]}, **RT_EXAMPLE)
+        t0 = time.perf_counter()
+        _, records = run_loopback(cfg)
+        wall = time.perf_counter() - t0
+        rounds = rounds_of(records)
+        if [r["dropped"] for r in rounds] != [[], [3], []]:
+            raise AssertionError(f"rt example: dropped "
+                                 f"{[r['dropped'] for r in rounds]}")
+        out["example"] = {
+            "card": smi, "wall_s": wall,
+            "dropped": [r["dropped"] for r in rounds],
+            "round_wall_s": [r["wall_s"] for r in rounds],
+            "predicted_s": [r["latency_s"] * cfg.delay_scale
+                            for r in rounds],
+            "crossval": crossval_report(records)["summary"]}
+
+        # (c) the chaos drill
+        plan = chaos_schedule(seed=7, rounds=RT_CHAOS["rounds"],
+                              n_devices=RT_CHAOS["n_devices"],
+                              kill_workers=1, kill_server=1)
+        cfg = RTConfig(device="cuda", faults=plan.worker_faults,
+                       chaos_kill_server=plan.server_kill_rounds,
+                       wal_dir=f"{tmp}/wal", trace_path=f"{tmp}/chaos.jsonl",
+                       **RT_CHAOS)
+        t0 = time.perf_counter()
+        state, records = run_elastic(cfg)
+        wall = time.perf_counter() - t0
+        ref, _ = loopback_reference(cfg)
+        _rt_bit_equal("chaos", state, ref)
+        rounds = rounds_of(records)
+        if [r["round"] for r in rounds] != list(range(cfg.rounds)) \
+                or any(r["dropped"] for r in rounds):
+            raise AssertionError(f"rt chaos: rounds {rounds}")
+        resumes = [q for q in records if q.get("kind") == "qos"
+                   and q["phase"] == "resume"]
+        out["chaos"] = {
+            "card": smi, "events": plan.events, "wall_s": wall,
+            "bit_equal": True,
+            "server_restarts": len(resumes),
+            "resume_s": [q["t_s"] for q in resumes],
+            "workers_recovered": sorted(
+                g for r in rounds for g in r["recovered"])}
+    log(f"rt example: dropped {out['example']['dropped']}; chaos: "
+        f"{out['chaos']['server_restarts']} server restart(s), workers "
+        f"{out['chaos']['workers_recovered']} recovered, "
+        f"{out['chaos']['wall_s']:.1f} s, bit-equal")
+    out["hand_kernel_launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def device_profile(fn, top: int = 8, host_ops: bool = True) -> dict:
     """One call of ``fn`` under torch.profiler: its host wall time, the
     device time summed over the kernels it ran (one stream, so the sum is
@@ -2584,6 +2799,7 @@ def main() -> int:
     fleet = fleet_phase(train, smi)
     lm_train = lm_train_phase(smi)
     sim = sim_phase(smi)
+    rt = rt_phase(smi)
 
     def launches(name):
         """The kernel's launches in each main path's run, each counted
@@ -2596,6 +2812,7 @@ def main() -> int:
                 out[f"{arch} training step"] = int(
                     r["launches_per_step"][name])
         out["sim phase"] = sim["hand_kernel_launches"][name]
+        out["rt phase"] = rt["hand_kernel_launches"][name]
         return out
 
     mla = moe_shapes[0]
@@ -2641,6 +2858,7 @@ def main() -> int:
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"lm_train": lm_train}))
     print(json.dumps({"sim": sim}))
+    print(json.dumps({"rt": rt}))
     print(json.dumps({"kernels": kernels}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,8 @@ where the payload is a compressed msgpack map from each leaf's path string
 (keys and indices joined by ``/``, in ``jax.tree`` flatten order) to
 ``{"dtype": name, "shape": [...], "data": raw bytes}``. The port writes
 and reads the msgpack subset the format uses (maps, str, bin, arrays and
-ints) with code of its own, byte for byte what ``msgpack.packb(...,
-use_bin_type=True)`` gives. It compresses with zlib, the reference's own
+ints) with its own codec (``repro_torch.codec``, strict), byte for byte
+what ``msgpack.packb(..., use_bin_type=True)`` gives. It compresses with zlib, the reference's own
 codec when ``zstandard`` is absent, and reads the reference's zstd files
 where ``zstandard`` is installed.
 
@@ -29,10 +29,9 @@ import warnings
 import zlib
 from typing import Any, Optional
 
-import numpy as np
 import torch
 
-from repro_torch import tree
+from repro_torch import codec, tree
 
 _ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
 _CKPT_MAGIC = b"RCK1"              # framed: magic + u32 crc32 + payload
@@ -67,126 +66,16 @@ def unframe_blob(blob: bytes, name: str = "checkpoint") -> bytes:
     return payload
 
 
-# --------------------------------------------------------------------------
-# msgpack, the subset the format uses
-# --------------------------------------------------------------------------
-
-def _pack_len(out: bytearray, n: int, fix: Optional[int], fix_max: int,
-              codes) -> None:
-    if fix is not None and n < fix_max:
-        out.append(fix | n)
-    elif codes[0] is not None and n < 1 << 8:
-        out += struct.pack(">BB", codes[0], n)
-    elif n < 1 << 16:
-        out += struct.pack(">BH", codes[1], n)
-    else:
-        out += struct.pack(">BI", codes[2], n)
-
-
-def _pack_int(out: bytearray, n: int) -> None:
-    if 0 <= n < 0x80 or -32 <= n < 0:
-        out += struct.pack(">b" if n < 0 else ">B", n)
-    elif n >= 0:
-        for code, fmt, hi in ((0xcc, ">BB", 1 << 8), (0xcd, ">BH", 1 << 16),
-                              (0xce, ">BI", 1 << 32), (0xcf, ">BQ", 1 << 64)):
-            if n < hi:
-                out += struct.pack(fmt, code, n)
-                return
-        raise OverflowError(n)
-    else:
-        for code, fmt, lo in ((0xd0, ">Bb", -(1 << 7)),
-                              (0xd1, ">Bh", -(1 << 15)),
-                              (0xd2, ">Bi", -(1 << 31)),
-                              (0xd3, ">Bq", -(1 << 63))):
-            if n >= lo:
-                out += struct.pack(fmt, code, n)
-                return
-        raise OverflowError(n)
-
-
-def _pack(out: bytearray, obj) -> None:
-    if isinstance(obj, bool) or obj is None:
-        raise TypeError(f"not in the checkpoint format: {obj!r}")
-    if isinstance(obj, int):
-        _pack_int(out, obj)
-    elif isinstance(obj, str):
-        b = obj.encode("utf-8")
-        _pack_len(out, len(b), 0xa0, 32, (0xd9, 0xda, 0xdb))
-        out += b
-    elif isinstance(obj, (bytes, bytearray)):
-        _pack_len(out, len(obj), None, 0, (0xc4, 0xc5, 0xc6))
-        out += obj
-    elif isinstance(obj, (list, tuple)):
-        _pack_len(out, len(obj), 0x90, 16, (None, 0xdc, 0xdd))
-        for v in obj:
-            _pack(out, v)
-    elif isinstance(obj, dict):
-        _pack_len(out, len(obj), 0x80, 16, (None, 0xde, 0xdf))
-        for k, v in obj.items():
-            _pack(out, k)
-            _pack(out, v)
-    else:
-        raise TypeError(f"not in the checkpoint format: {type(obj)}")
-
-
 def packb(obj) -> bytes:
     """msgpack bytes of ``obj`` (dicts, lists, str, bytes and ints), as
-    ``msgpack.packb(obj, use_bin_type=True)`` gives them."""
-    out = bytearray()
-    _pack(out, obj)
-    return bytes(out)
+    ``msgpack.packb(obj, use_bin_type=True)`` gives them; any other type
+    raises ``TypeError``."""
+    return codec.packb(obj, strict=True)
 
 
 def unpackb(raw: bytes):
     """Inverse of ``packb``; raises ``ValueError`` on anything else."""
-    pos = 0
-
-    def take(n):
-        nonlocal pos
-        if pos + n > len(raw):
-            raise ValueError("truncated msgpack data")
-        b = raw[pos:pos + n]
-        pos += n
-        return b
-
-    def num(fmt):
-        return struct.unpack(fmt, take(struct.calcsize(fmt)))[0]
-
-    def one():
-        c = take(1)[0]
-        if c < 0x80:
-            return c
-        if c >= 0xe0:
-            return c - 0x100
-        if 0x80 <= c < 0x90:
-            return {one(): one() for _ in range(c & 0x0f)}
-        if 0x90 <= c < 0xa0:
-            return [one() for _ in range(c & 0x0f)]
-        if 0xa0 <= c < 0xc0:
-            return take(c & 0x1f).decode("utf-8")
-        ints = {0xcc: ">B", 0xcd: ">H", 0xce: ">I", 0xcf: ">Q",
-                0xd0: ">b", 0xd1: ">h", 0xd2: ">i", 0xd3: ">q"}
-        if c in ints:
-            return num(ints[c])
-        lens = {0xc4: ">B", 0xc5: ">H", 0xc6: ">I", 0xd9: ">B",
-                0xda: ">H", 0xdb: ">I", 0xdc: ">H", 0xdd: ">I",
-                0xde: ">H", 0xdf: ">I"}
-        if c not in lens:
-            raise ValueError(f"msgpack type 0x{c:02x} is not in the "
-                             "checkpoint format")
-        n = num(lens[c])
-        if c in (0xc4, 0xc5, 0xc6):
-            return take(n)
-        if c in (0xd9, 0xda, 0xdb):
-            return take(n).decode("utf-8")
-        if c in (0xdc, 0xdd):
-            return [one() for _ in range(n)]
-        return {one(): one() for _ in range(n)}
-
-    obj = one()
-    if pos != len(raw):
-        raise ValueError(f"{len(raw) - pos} trailing bytes")
-    return obj
+    return codec.unpackb(raw, strict=True)
 
 
 # --------------------------------------------------------------------------
@@ -197,30 +86,9 @@ def _path_str(path) -> str:
     return "/".join(str(p) for p in path)
 
 
-def _pack_tensor(t) -> dict:
-    """``{"dtype", "shape", "data"}``; dtype by NAME, as the reference
-    stores it (bfloat16's bytes are read through an int16 view)."""
-    t = torch.as_tensor(t).detach().cpu().contiguous()
-    if t.dtype == torch.bfloat16:
-        name, a = "bfloat16", t.view(torch.int16).numpy()
-    else:
-        a = t.numpy()
-        name = a.dtype.name
-    return {"dtype": name, "shape": list(t.shape), "data": a.tobytes()}
-
-
-def _unpack_tensor(d: dict) -> torch.Tensor:
-    shape = [int(s) for s in d["shape"]]
-    if d["dtype"] == "bfloat16":
-        a = np.frombuffer(d["data"], dtype=np.int16).reshape(shape)
-        return torch.from_numpy(a.copy()).view(torch.bfloat16)
-    a = np.frombuffer(d["data"], dtype=np.dtype(d["dtype"])).reshape(shape)
-    return torch.from_numpy(a.copy())
-
-
 def payload_bytes(state) -> bytes:
     """The uncompressed msgpack payload of a tree of tensors."""
-    return packb({_path_str(path): _pack_tensor(leaf)
+    return packb({_path_str(path): codec.tensor_record(leaf)
                   for path, leaf in tree.flatten_with_path(state)})
 
 
@@ -248,7 +116,7 @@ def deserialize(blob: bytes, target) -> Any:
         key = _path_str(path)
         if key not in payload:
             raise KeyError(f"checkpoint missing leaf {key!r}")
-        t = _unpack_tensor(payload[key])
+        t = torch.as_tensor(codec.record_array(payload[key]))
         if isinstance(leaf, torch.Tensor):
             t = t.to(device=leaf.device, dtype=leaf.dtype)
         out.append(t)

@@ -280,16 +280,9 @@ class CPSL:
         flat = _flat(batch, fleet)
 
         # Phase 2 (eqs. 5-6): server FP/BP; emits the smashed-data gradient
-        def srv_loss(srv, sm):
-            loss, aux = self._server_loss(srv, sm, flat, fleet)
-            total = loss + aux
-            return (total.sum() if fleet else total), loss
-
-        (_, loss), (g_srv, g_smashed) = _value_and_grad(
-            srv_loss, (state["srv"], smashed_flat))
-        new_srv, srv_opt = self.srv_opt.step(g_srv, state["srv_opt"],
-                                             state["srv"], state["step"],
-                                             lr_scale=lr_scale)
+        new_srv, srv_opt, g_smashed, loss = self.server_phase(
+            state["srv"], state["srv_opt"], state["step"], smashed_flat, flat,
+            lr_scale=lr_scale, fleet=fleet)
 
         # Phase 3 (eq. 7): device BP from the smashed gradient
         dev = tree.map(lambda t: t.detach().requires_grad_(), state["dev"])
@@ -304,6 +297,23 @@ class CPSL:
         state = dict(state, dev=new_dev, dev_opt=dev_opt, srv=new_srv,
                      srv_opt=srv_opt, step=state["step"] + 1)
         return state, {"loss": loss, "aux": torch.zeros_like(loss)}
+
+    def server_phase(self, srv, srv_opt, step, smashed_flat, flat,
+                     lr_scale=None, fleet: bool = False):
+        """Phase 2 of the protocol step (eqs. 5-6): the server's forward and
+        backward on the concatenated smashed data, then its optimizer step.
+        Returns ``(srv, srv_opt, smashed-data gradient, loss)``. The rt
+        server (``rt.server.RTServer``) runs exactly this."""
+        def srv_loss(s, sm):
+            loss, aux = self._server_loss(s, sm, flat, fleet)
+            total = loss + aux
+            return (total.sum() if fleet else total), loss
+
+        (_, loss), (g_srv, g_smashed) = _value_and_grad(
+            srv_loss, (srv, smashed_flat))
+        new_srv, new_opt = self.srv_opt.step(g_srv, srv_opt, srv, step,
+                                             lr_scale=lr_scale)
+        return new_srv, new_opt, g_smashed, loss
 
     def cluster_step(self, state, batch, lr_scale=None):
         """One local epoch for the active cluster (paper Alg. 1 lines 7-19)."""

@@ -42,6 +42,13 @@ def sampler_generator(seed: int, device="cuda") -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
+def warmup_generator(device="cuda") -> torch.Generator:
+    """Throwaway root for shape-only warm-up calls (the counterpart of
+    ``repro.streams.warmup_key``): their results are discarded and never
+    mix into trained state."""
+    return torch.Generator(device=device).manual_seed(0)
+
+
 # --------------------------------------------------------------------------
 # registry machinery (as in repro.streams)
 # --------------------------------------------------------------------------
@@ -280,7 +287,8 @@ for _name, _doc in (
         ("trainer_round", "Trainer per-round network draw: seed*1000 + rnd."),
         ("lm_device", "LMClusterData sequential per-device streams: "
                       "seed + 7*d."),
-        ("curve", "equal_split_curve's network draws: default_rng(seed).")):
+        ("curve", "equal_split_curve's network draws: default_rng(seed)."),
+        ("chaos", "rt chaos-schedule draws: default_rng(seed).")):
     _register(StreamSpec(_name, "scalar", (), _doc))
 
 
@@ -341,4 +349,8 @@ def lm_device_rng(seed: int, device: int) -> np.random.Generator:
 
 
 def curve_rng(seed: int) -> np.random.Generator:
+    return np.random.default_rng(seed)
+
+
+def chaos_rng(seed: int) -> np.random.Generator:
     return np.random.default_rng(seed)

@@ -103,11 +103,25 @@ failures is caught:
    round (device 3 dropped in round 1) and its crossval; the chaos drill
    (a worker and the server SIGKILLed, ``run_elastic`` resuming from the
    WAL) bit-equal to the fault-free reference. No hand-written kernel.
+12. launch: the dry run, the roofline and the analysis
+   (``repro_torch.launch``, ``repro_torch.analysis``): (a) the dry run's
+   whole table (10 arches, 32 cells) traced on ``meta`` through the
+   kernels' meta paths, in a process started after the kernels build
+   and run beside the card phases: per cell the peak GB, whether it fits
+   80 GB, the roofline terms, MODEL_FLOPS and the useful ratio; (b)
+   gemma2-2b prefill (K1 26 times), mamba2-2.7b prefill (K2 64 times) and
+   a gemma2-2b split training step, each built by the dry run's builders
+   on ``meta`` and on the card under the same op counter: FLOPs and bytes
+   equal, custom calls equal to the launches, the peak estimate against
+   ``max_memory_allocated``, the step time against the roofline; (c)
+   ``python -m repro_torch.analysis --check`` (JIT002 on the card) exits
+   0.
 
 Prints one ``{"moe_serve": {...}}`` line, one ``{"whisper_serve":
 {...}}`` line, one ``{"train": {...}}`` line, one ``{"fleet": {...}}``
 line, one ``{"lm_train": {...}}`` line, one ``{"sim": {...}}`` line, one
-``{"rt": {...}}`` line, one ``{"kernels": [...]}`` line,
+``{"rt": {...}}`` line, one ``{"launch": {...}}`` line, one
+``{"kernels": [...]}`` line,
 the script's seconds and, last, the device line ``{"ok": true, "device":
 {...}}``.
 """
@@ -2733,6 +2747,254 @@ def rt_phase(smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# 12. launch: the dry run, the roofline and the analysis on the card
+# --------------------------------------------------------------------------
+
+# (a) runs the dry run's whole table through the kernels' meta paths
+DRYRUN_OVERRIDES = ("attn_impl=pallas", "ssd_impl=pallas")
+LAUNCH_OUT = ROOT / "build" / "chip_smoke"   # records and the report
+DRYRUN_OUT = LAUNCH_OUT / "dryrun"
+CARD_GB = 80.0                     # one H100's device memory
+LAUNCH_REPS = 3                    # timed runs of each (b) step
+
+
+def start_dryrun_table():
+    """(a), started right after the kernels build: ``python -m
+    repro_torch.launch.dryrun --all --mesh h100`` in a process of its own.
+    It traces every cell on ``meta`` (host CPU only), so it runs beside the
+    card phases; ``launch_phase`` waits for it. Returns (process, log
+    path, start time on the wall clock)."""
+    import os
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    for old in DRYRUN_OUT.glob("*.json"):
+        old.unlink()
+    logf = DRYRUN_OUT / "dryrun.log"
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+           "--mesh", "h100", "--out", str(DRYRUN_OUT)]
+    for ov in DRYRUN_OVERRIDES:
+        cmd += ["--override", ov]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with open(logf, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                env=env, cwd=ROOT)
+    return proc, logf, time.time()
+
+
+def _dryrun_table(proc, logf, t0) -> dict:
+    """(a)'s result: one line per cell, read from the records; ``wall_s``
+    runs from the process's start to its last record."""
+    rc = proc.wait(timeout=900)
+    if rc != 0:
+        log(logf.read_text()[-4000:])
+        raise AssertionError(f"dry-run table: exit {rc}")
+    records = sorted(DRYRUN_OUT.glob("*__h100.json"))
+    wall = max(fn.stat().st_mtime for fn in records) - t0
+    rows = []
+    for fn in records:
+        rec = json.loads(fn.read_text())
+        peak = rec["memory"]["peak_bytes_per_device"] / 1e9
+        rl = rec["roofline"]
+        rows.append({"arch": rec["arch"], "cell": rec["cell"],
+                     "peak_gb": peak, "fits": peak <= CARD_GB,
+                     "compute_ms": 1e3 * rl["compute_s"],
+                     "memory_ms": 1e3 * rl["memory_s"],
+                     "bottleneck": rl["bottleneck"],
+                     "model_flops": rl["model_flops"],
+                     "counted_flops": rl["hlo_flops_global"],
+                     "useful_ratio": rl["useful_ratio"],
+                     "custom_calls": rec["custom_calls"],
+                     "trace_s": rec["lower_s"]})
+        r = rows[-1]
+        log(f"dryrun {r['arch']:22s} {r['cell']:12s} peak "
+            f"{peak:8.2f} GB {'fits' if r['fits'] else 'DOES NOT FIT'}; "
+            f"compute {r['compute_ms']:9.2f} ms, memory "
+            f"{r['memory_ms']:9.2f} ms -> {r['bottleneck']}; model_flops "
+            f"{r['model_flops']:.4g}, useful {r['useful_ratio']:.3f}; "
+            f"trace {r['trace_s']} s")
+    want = 32
+    if len(rows) != want:
+        raise AssertionError(f"dry-run table: {len(rows)} records, "
+                             f"{want} cells")
+    return {"cells": rows, "wall_s": wall,
+            "trace_s": sum(r["trace_s"] for r in rows),
+            "fit": sum(r["fits"] for r in rows)}
+
+
+def _launch_steps():
+    """(b)'s three steps: (label, builder(device) -> (step, args), cfg,
+    shape, kernel, expected launches)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(device="cuda")
+    gemma = registry.get("gemma2-2b").replace(attn_impl="pallas")
+    mamba = registry.get("mamba2-2.7b").replace(ssd_impl="pallas")
+    # lm_train_phase's setting: bf16 compute, f32 params, remat, the CE in
+    # LM_LOSS_CHUNK tokens, SGD at the CPSLConfig lrs, v = 1, K = LM_K
+    train = gemma.replace(dtype="bfloat16", param_dtype="float32",
+                          remat=True, loss_chunk=LM_LOSS_CHUNK)
+    s_gemma = ShapeCfg("gemma2_prefill", PROMPT, BATCH, "prefill")
+    s_mamba = ShapeCfg("mamba2_prefill", MAMBA_PROMPT, BATCH, "prefill")
+    s_train = ShapeCfg("gemma2_train_step", PROMPT, LM_K * LM_B, "train")
+    return [
+        ("gemma2-2b prefill", lambda d: dryrun.build_prefill(
+            gemma, s_gemma, mesh, device=d), gemma, s_gemma,
+         "flash_attention", len(gemma.layer_specs())),
+        ("mamba2-2.7b prefill", lambda d: dryrun.build_prefill(
+            mamba, s_mamba, mesh, device=d), mamba, s_mamba, "ssd",
+         len(mamba.layer_specs())),
+        ("gemma2-2b training step", lambda d: dryrun.build_train(
+            train, s_train, mesh, 1, LM_K,
+            ccfg_over=["optimizer=sgd", "lr_device=0.05",
+                       "lr_server=0.25"], device=d), train, s_train,
+         "flash_attention", _lm_launches_per_step(train, "flash_attention",
+                                                  1)),
+    ]
+
+
+def _launch_step(label, build, cfg, shape, kernel, expect, smi) -> dict:
+    """One (b) step: counted on meta (the estimate), then built on the card
+    and counted as it runs (the kernels' counts set to 0 just before and
+    read just after), then timed without the counter."""
+    import torch
+    from repro_torch.launch import hlo_analysis
+    from repro_torch.launch.roofline import roofline_terms
+    mods = _kernel_modules()
+    step, args = build("meta")
+    t0 = time.perf_counter()
+    est, _ = hlo_analysis.analyze(step, *args)
+    meta_s = time.perf_counter() - t0
+    del step, args
+    step, args = build("cuda")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for m in mods.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    run, out = hlo_analysis.analyze(step, *args)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    launches = {k: m.launches for k, m in mods.items()}
+    measured_peak = torch.cuda.max_memory_allocated() - before
+    del out
+    times = []
+    for _ in range(LAUNCH_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del out
+    del step, args
+    torch.cuda.empty_cache()
+    step_s = sorted(times)[len(times) // 2]
+    rl = roofline_terms(hlo_analysis.report(run), 1, cfg, shape)
+    bound_s = max(rl.compute_s, rl.memory_s)
+    est_step = est.peak_bytes - est.argument_bytes
+    rec = {"flops": {"meta": est.flops, "card": run.flops},
+           "hbm_bytes": {"meta": est.hbm_bytes, "card": run.hbm_bytes},
+           "custom_calls": {"meta": dict(est.custom_calls),
+                            "card": dict(run.custom_calls)},
+           "launches": launches,
+           "argument_gb": est.argument_bytes / 1e9,
+           "peak_gb_estimate": est.peak_bytes / 1e9,
+           "step_peak_gb_estimate": est_step / 1e9,
+           "step_peak_gb_measured": measured_peak / 1e9,
+           "peak_ratio": est_step / measured_peak,
+           "compute_ms": 1e3 * rl.compute_s, "memory_ms": 1e3 * rl.memory_s,
+           "bottleneck": rl.bottleneck, "model_flops": rl.model_flops,
+           "useful_ratio": rl.useful_ratio,
+           "step_ms": 1e3 * step_s, "step_ms_all": [1e3 * t for t in times],
+           "roofline_share": bound_s / step_s, "meta_trace_s": meta_s,
+           "counted_run_s": counted_s, "card": smi}
+    log(f"launch {label}: FLOPs meta {est.flops:.6g} card {run.flops:.6g}; "
+        f"bytes meta {est.hbm_bytes:.6g} card {run.hbm_bytes:.6g}; custom "
+        f"calls {dict(run.custom_calls)}, launches {launches}; step peak "
+        f"est {est_step / 1e9:.3f} GB vs measured {measured_peak / 1e9:.3f} "
+        f"GB (ratio {rec['peak_ratio']:.3f}); step {1e3 * step_s:.2f} ms, "
+        f"roofline {1e3 * bound_s:.2f} ms ({rl.bottleneck}) = "
+        f"{100 * rec['roofline_share']:.1f} % of the step [{smi}]")
+    if est.flops != run.flops or est.hbm_bytes != run.hbm_bytes:
+        raise AssertionError(f"{label}: meta and card counts differ")
+    other = [k for k in mods if k != kernel]
+    if (dict(run.custom_calls) != {kernel: expect}
+            or dict(est.custom_calls) != {kernel: expect}
+            or launches[kernel] != expect
+            or any(launches[k] for k in other)):
+        raise AssertionError(f"{label}: custom calls {rec['custom_calls']}, "
+                             f"launches {launches}, expected {expect}")
+    return rec
+
+
+def _analysis_check() -> dict:
+    """(c): the analysis gate on the card, in a process of its own."""
+    import os
+    out = LAUNCH_OUT / "ANALYSIS.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--check", "--out",
+         str(out)], env=env, cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    log(res.stdout.strip()[-2000:])
+    if res.returncode != 0:
+        log(res.stderr[-4000:])
+        raise AssertionError(f"analysis --check: exit {res.returncode}")
+    rep = json.loads(out.read_text())
+    if rep["jit_checks_run"] != ["JIT002", "JIT003"] or len(
+            rep["jit_targets"]) != 4:
+        raise AssertionError(f"analysis --check ran {rep}")
+    return {"rc": res.returncode, "n_findings": rep["n_findings"],
+            "jit_checks_run": rep["jit_checks_run"],
+            "jit_targets": rep["jit_targets"],
+            "not_applicable": sorted(rep["not_applicable"]),
+            "wall_s": wall}
+
+
+def launch_phase(smi: str, table) -> dict:
+    """The dry run, the roofline and the analysis (``repro_torch.launch``,
+    ``repro_torch.analysis``) on the card.
+
+    (a) The dry run's whole table, 10 arches x their cells (32), built
+        and traced on ``meta`` with the kernels' meta paths
+        (``start_dryrun_table``): per cell the peak GB of one card and
+        whether it fits 80 GB, the compute and memory terms and the
+        bottleneck, MODEL_FLOPS and the useful ratio, the trace's seconds.
+        A failing cell fails the phase.
+    (b) Three steps the card runs, each built by the dry run's builders
+        once on ``meta`` (the estimate) and once on the card (the run),
+        under the same op counter: gemma2-2b prefill (batch 4, prompt
+        5120, K1 26 times), mamba2-2.7b prefill (batch 4, 8192 tokens, K2
+        64 times) and one split training step of gemma2-2b at
+        lm_train_phase's setting (v = 1, K = 2, B = 2, S = 5120, K1 under
+        its autograd.Function). Meta and card FLOPs and HBM bytes must be
+        equal, and the custom calls equal to the kernel's launches. The
+        peak estimate (less the arguments) against max_memory_allocated
+        over the step (less what was allocated before), and the measured
+        step time against the roofline's max(compute, memory).
+    (c) ``python -m repro_torch.analysis --check`` (rng_lint, thread_lint,
+        JIT002 under sync-debug "error" and JIT003 on the four targets)
+        with the empty baseline must exit 0."""
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    out["steps"] = {}
+    for label, build, cfg, shape, kernel, expect in _launch_steps():
+        out["steps"][label] = _launch_step(label, build, cfg, shape, kernel,
+                                           expect, smi)
+    out["table"] = _dryrun_table(*table)
+    log(f"dryrun table: {out['table']['fit']} of 32 cells fit {CARD_GB} GB; "
+        f"traces {out['table']['trace_s']:.1f} s, wall "
+        f"{out['table']['wall_s']:.1f} s beside the card phases")
+    out["analysis"] = _analysis_check()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def device_profile(fn, top: int = 8, host_ops: bool = True) -> dict:
     """One call of ``fn`` under torch.profiler: its host wall time, the
     device time summed over the kernels it ran (one stream, so the sum is
@@ -2783,6 +3045,16 @@ def main() -> int:
 
     t_start = time.perf_counter()
     smi = device_phase()["nvidia_smi"]
+    table = start_dryrun_table()
+    try:
+        return _main(torch, t_start, smi, table)
+    finally:
+        if table[0].poll() is None:
+            table[0].kill()
+            table[0].wait()
+
+
+def _main(torch, t_start, smi, table) -> int:
     sweep = flash_sweep()
     shapes = flash_slice_shapes()
     moe_shapes = flash_moe_shapes()
@@ -2800,6 +3072,7 @@ def main() -> int:
     lm_train = lm_train_phase(smi)
     sim = sim_phase(smi)
     rt = rt_phase(smi)
+    launch = launch_phase(smi, table)
 
     def launches(name):
         """The kernel's launches in each main path's run, each counted
@@ -2813,6 +3086,8 @@ def main() -> int:
                     r["launches_per_step"][name])
         out["sim phase"] = sim["hand_kernel_launches"][name]
         out["rt phase"] = rt["hand_kernel_launches"][name]
+        for label, r in launch["steps"].items():
+            out[f"launch {label} (dry-run builder)"] = r["launches"][name]
         return out
 
     mla = moe_shapes[0]
@@ -2859,6 +3134,7 @@ def main() -> int:
     print(json.dumps({"lm_train": lm_train}))
     print(json.dumps({"sim": sim}))
     print(json.dumps({"rt": rt}))
+    print(json.dumps({"launch": launch}))
     print(json.dumps({"kernels": kernels}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Model config dataclasses (the port's own copy of ``repro.configs.base``'s
 model part, ``CPSLConfig``, ``FleetConfig`` and the shape cells
-``ShapeCfg``/``SHAPES`` and the simulator's ``SimCfg``/``SimFleetCfg``;
-the mesh configs come with their slice).
+``ShapeCfg``/``SHAPES``, the simulator's ``SimCfg``/``SimFleetCfg`` and
+``MeshConfig``).
 
 A ModelConfig fully describes one architecture in the zoo. Layer stacks are
 an optional unrolled ``prologue`` followed by a periodic ``pattern``
@@ -295,6 +295,20 @@ class SimFleetCfg:
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The reference's device-mesh shape. Kept so that this module has
+    every name of ``repro.configs.base``; the port runs on one card
+    (``launch.mesh.make_host_mesh``)."""
+    data: int = 16
+    model: int = 16
+    pods: int = 1                    # >1 adds leading "pod" axis
+
+    @property
+    def n_devices(self) -> int:
+        return self.data * self.model * self.pods
 
 
 @dataclass(frozen=True)

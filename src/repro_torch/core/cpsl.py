@@ -140,7 +140,8 @@ class CPSL:
     def init_state(self, generator: torch.Generator) -> dict:
         """A fresh state on the generator's device: device-side params
         drawn once and copied to every client row, then server params,
-        then the two ``rng`` words."""
+        then the two ``rng`` words. On ``meta`` (``streams.meta_generator``)
+        every leaf has its shape and dtype and no storage."""
         dev_ = generator.device
         K = 1 if self.ccfg.share_device_params else self.ccfg.cluster_size
         dev0 = self.split.init_device(generator)
@@ -149,7 +150,10 @@ class CPSL:
         srv = self.split.init_server(generator)
         words = torch.randint(0, 2 ** 32, (2,), generator=generator,
                               device=dev_, dtype=torch.int64)
-        rng = torch.from_numpy(words.cpu().numpy().astype(np.uint32))
+        if dev_.type == "meta":      # shapes only (the dry run)
+            rng = torch.empty((2,), dtype=torch.uint32, device=dev_)
+        else:
+            rng = torch.from_numpy(words.cpu().numpy().astype(np.uint32))
         state = {
             "step": torch.zeros((), dtype=torch.int32, device=dev_),
             "dev": dev,

@@ -14,3 +14,16 @@ def no_grad_inputs(name: str, *tensors):
         raise RuntimeError(
             f"{name}: an input requires grad; the kernel has no backward. "
             "Call it through its autograd.Function in kernels/*/ops.py")
+
+
+# Observers of hand-kernel calls (``launch.hlo_analysis.OpCounter`` adds
+# itself while it counts): a launch through ctypes is no aten op, so each
+# wrapper reports its kernel here, on the card and on its meta path.
+observers = []
+
+
+def record_call(name: str, operands, results):
+    """Report one kernel call (its operand and result tensors) to every
+    observer."""
+    for obs in observers:
+        obs.custom_call(name, operands, results)

@@ -3,7 +3,11 @@
 The kernel is ``csrc/flash_attention.cu`` (built by ``kernels._build`` at
 first use); see its header for the design. For a CUDA tensor the wrapper
 launches it on the current stream or raises. For a CPU tensor, and only
-then, it computes the plain version ``ref.attention_ref``.
+then, it computes the plain version ``ref.attention_ref``. For a ``meta``
+tensor (the dry run's shape propagation) it returns a ``meta`` output of
+the kernel's shape and dtype and computes nothing. On the card and on
+meta it reports the call to ``kernels.record_call`` (the dry run's op
+counter cannot see a launch through ctypes).
 
 ``launches`` counts the kernel's launches in this process; a caller that
 wants to show a run went through the kernel sets it to 0 before the run and
@@ -22,7 +26,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build, no_grad_inputs
+from repro_torch.kernels import _build, no_grad_inputs, record_call
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 192, 256)
@@ -73,7 +77,7 @@ def flash_attention_flat(q, k, v, *, causal: bool = True, window: int = 0,
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, q_offset=q_offset,
                              kv_repeat=kv_repeat)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     BH, Sq, D = q.shape
     Skv = k.shape[1]
@@ -87,6 +91,9 @@ def flash_attention_flat(q, k, v, *, causal: bool = True, window: int = 0,
     out = torch.empty_like(q)
     if Sq == 0 or BH == 0:
         return out
+    if q.device.type == "meta":
+        record_call("flash_attention", (q, k, v), (out,))
+        return out
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -99,4 +106,5 @@ def flash_attention_flat(q, k, v, *, causal: bool = True, window: int = 0,
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(err).decode())
     launches += 1
+    record_call("flash_attention", (q, k, v), (out,))
     return out

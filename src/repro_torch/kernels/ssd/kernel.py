@@ -10,7 +10,12 @@ inputs (one batch, one head per group), so neither copies anything.
 
 For a CUDA tensor a wrapper launches the kernel on the current stream or
 raises. For a CPU tensor, and only then, it computes the plain version
-(``ref.ssd_grouped_ref``: ``ssd_chunked_ref`` over the same chunks).
+(``ref.ssd_grouped_ref``: ``ssd_chunked_ref`` over the same chunks). For
+a ``meta`` tensor (the dry run's shape propagation) it allocates what the
+card would (y, hT in f32 and the bf16 path's scratch) on ``meta`` and
+computes nothing. On the card and on meta it reports the call to
+``kernels.record_call`` (the dry run's op counter cannot see a launch
+through ctypes).
 
 ``launches`` counts wrapper calls that launched the kernel in this process
 (one call runs three CUDA kernels for each window of chunks in bf16, one
@@ -33,7 +38,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build, no_grad_inputs
+from repro_torch.kernels import _build, no_grad_inputs, record_call
 from repro_torch.kernels.ssd.ref import ssd_grouped_ref
 
 STATE_DIMS = (16, 32, 64, 128)     # the N and P the kernel is built for
@@ -110,7 +115,7 @@ def _launch(x, dt, A, Bm, Cm, y, Q: int) -> torch.Tensor:
     global launches
     B_, S, H, P = x.shape
     G, N = Bm.shape[2:]
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no SSD kernel for device {x.device}")
     if N not in STATE_DIMS or P not in STATE_DIMS:
         raise ValueError(f"N={N}, P={P}: each must be in {STATE_DIMS}")
@@ -140,6 +145,9 @@ def _launch(x, dt, A, Bm, Cm, y, Q: int) -> torch.Tensor:
         scratch = (cum.data_ptr(), states.data_ptr(), hin.data_ptr())
     else:
         scratch = (None, None, None)
+    if x.device.type == "meta":
+        record_call("ssd", (x, dt, A, Bm, Cm), (y, hT))
+        return hT
     strides = (ctypes.c_longlong * 15)(
         *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *Cm.stride()[:3],
         *y.stride()[:3])
@@ -154,6 +162,7 @@ def _launch(x, dt, A, Bm, Cm, y, Q: int) -> torch.Tensor:
         raise RuntimeError("ssd kernel launch failed: "
                            + lib.ssd_error_string(err).decode())
     launches += 1
+    record_call("ssd", (x, dt, A, Bm, Cm), (y, hT))
     return hT
 
 

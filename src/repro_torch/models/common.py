@@ -357,10 +357,12 @@ def gqa_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               kv_valid_len=None, use_rope: bool = True,
               impl: Optional[str] = None) -> torch.Tensor:
     """Self- or cross-attention. If ``kv`` is given it is the (already
-    roped/projected) key/value source (cache or encoder memory)."""
+    roped/projected) key/value source (cache, the prefill's own k/v or
+    encoder memory); with no ``positions`` the queries sit at 0..S-1."""
     B, S, _ = x.shape
     hd, H, G = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     R = H // G
+    start = 0 if positions is None else None
     if positions is None:
         positions = torch.arange(S, device=x.device)
     q = dense(p["wq"], x).reshape(B, S, G, R, hd)
@@ -375,8 +377,9 @@ def gqa_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         k, v = kv
         # only causal/window masking consults absolute positions
-        q_offset = (positions[0] if (causal or window > 0)
-                    and positions.dim() == 1 else 0)
+        q_offset = ((positions[0] if start is None else start)
+                    if (causal or window > 0) and positions.dim() == 1
+                    else 0)
     o = grouped_attention(q, k, v, cfg, causal=causal, window=window,
                           q_offset=q_offset, kv_valid_len=kv_valid_len,
                           impl=impl)
@@ -423,7 +426,9 @@ def mla_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               causal: bool = True, positions: Optional[torch.Tensor] = None,
               latent: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               kv_valid_len=None, absorbed: bool = False) -> torch.Tensor:
-    """MLA attention. ``latent`` is the (c_kv, k_rope) cache for decode.
+    """MLA attention. ``latent`` is the (c_kv, k_rope) cache for decode,
+    or the prefill's own latent (then, with no ``positions``, the queries
+    sit at 0..S-1).
 
     Materialised (prefill): k = [k_nope, k_rope broadcast over heads] and v
     padded to the qk width dn + dr run through ``grouped_attention`` as H
@@ -437,6 +442,7 @@ def mla_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     H = cfg.n_heads
     dn, dr, dv, r = (m.qk_nope_head_dim, m.qk_rope_head_dim,
                      m.v_head_dim, m.kv_lora_rank)
+    start = 0 if positions is None else None
     if positions is None:
         positions = torch.arange(S, device=x.device)
     q = dense(p["wq"], x).reshape(B, S, H, dn + dr)
@@ -447,7 +453,8 @@ def mla_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         q_offset = 0
     else:
         c_kv, k_rope = latent
-        q_offset = positions[0] if positions.dim() == 1 else 0
+        q_offset = ((positions[0] if start is None else start)
+                    if positions.dim() == 1 else 0)
     Skv = c_kv.shape[1]
 
     if absorbed:
@@ -541,6 +548,14 @@ def moe_route(p: Params, x: torch.Tensor, top_k: int):
     return probs, gate_w, gate_idx
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n).float()`` for indices in [0, n), as one
+    comparison: the same values and the same ops on every device
+    (``F.one_hot`` reads the indices' range back to the host on the CPU,
+    scatters on CUDA and compares on ``meta``)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+
+
 def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
               no_drop: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y, aux_loss). Grouped dense dispatch, as the
@@ -560,13 +575,13 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
     probs, gate_w, gate_idx = moe_route(p, xg, k)           # (n, g, k)
     C = g * k if no_drop else int(math.ceil(g * k / E * m.capacity_factor))
-    oh = F.one_hot(gate_idx, E).float()                     # (n, g, k, E)
+    oh = _one_hot(gate_idx, E)                              # (n, g, k, E)
     tok_e = oh.sum(2)                                       # (n, g, E)
     pos_base = torch.cumsum(tok_e, dim=1) - tok_e           # tokens before t
     within = torch.cumsum(oh, dim=2) - oh                   # earlier choices
     pos = ((pos_base[:, :, None, :] + within) * oh).sum(-1)   # (n, g, k)
     keep = pos < C
-    pos_oh = F.one_hot(torch.where(keep, pos.long(), 0), C).float() \
+    pos_oh = _one_hot(torch.where(keep, pos.long(), 0), C) \
         * keep[..., None]                                   # (n, g, k, C)
     disp = torch.einsum("ngke,ngkc->ngec", oh, pos_oh)
     comb = torch.einsum("ngke,ngkc->ngec", oh * gate_w[..., None], pos_oh)
@@ -598,7 +613,7 @@ def moe_apply_naive(p: Params, x: torch.Tensor,
              cfg.act)
     h = h * torch.einsum("bsd,edf->bsef", x, p["w_up"].to(x.dtype))
     ye = torch.einsum("bsef,efd->bsed", h, p["w_down"].to(x.dtype))
-    sel = F.one_hot(gate_idx, m.n_experts).float()
+    sel = _one_hot(gate_idx, m.n_experts)
     w = torch.einsum("bske,bsk->bse", sel, gate_w).to(x.dtype)
     y = torch.einsum("bse,bsed->bsd", w, ye)
     if m.n_shared_experts:

@@ -176,7 +176,8 @@ def block_prefill(p: Params, x, cfg: ModelConfig, spec: LayerSpec,
                   positions, cap: int, cache: Optional[dict] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """Forward one block while building its decode cache. Returns
-    (x, aux, cache). ``cap`` >= S is the cache capacity; the k/v (the MLA
+    (x, aux, cache). ``positions`` are the prompt's, 0..S-1 (a prefill
+    from scratch). ``cap`` >= S is the cache capacity; the k/v (the MLA
     latent, or the conv window and SSM state) go into ``cache`` in place
     when given (a layer's view of the stacked cache), else into a new one.
     A MoE FFN runs with ``no_drop`` exactly when B*S <= 4096 (the
@@ -189,13 +190,17 @@ def block_prefill(p: Params, x, cfg: ModelConfig, spec: LayerSpec,
         ckv, kr = cm.mla_project_latent(p["attn"], h, cfg, positions)
         cache["ckv"][:, :S] = ckv.to(cache["ckv"].dtype)
         cache["kr"][:, :S] = kr.to(cache["kr"].dtype)
-        a = cm.mla_apply(p["attn"], h, cfg, causal=True, positions=positions)
+        # the latent just projected, not projected again (the reference
+        # leaves the duplicate to XLA's CSE); queries at 0..S-1
+        a = cm.mla_apply(p["attn"], h, cfg, causal=True, latent=(ckv, kr))
     elif spec.mixer == "attn":
         k, v = cm.gqa_project_kv(p["attn"], h, cfg, positions)
         cache["k"][:, :S] = k.to(cache["k"].dtype)
         cache["v"][:, :S] = v.to(cache["v"].dtype)
+        # k/v just projected, not projected again (the reference leaves
+        # the duplicate to XLA's CSE); queries at 0..S-1
         a = cm.gqa_apply(p["attn"], h, cfg, causal=True, window=spec.window,
-                         positions=positions)
+                         kv=(k, v))
     else:
         a, (conv_state, hT) = mb.mamba_apply(p["mamba"], h, cfg,
                                              return_state=True)

@@ -85,12 +85,16 @@ def enc_block_apply(p: Params, x, cfg: ModelConfig):
 
 
 def dec_block_apply(p: Params, x, memory, cfg: ModelConfig, positions,
-                    mem_kv=None, kv_valid_len=None, self_kv=None):
-    """Self-attention (causal exactly when ``self_kv`` is None), then
+                    mem_kv=None, kv_valid_len=None, self_kv=None,
+                    causal=None):
+    """Self-attention over ``self_kv`` (the block's own k/v when None),
+    causal by default exactly when ``self_kv`` is None (a prefill passes
+    its own k/v, ``causal=True`` and no ``positions``), then
     cross-attention over ``mem_kv``, projected from ``memory`` when not
     given, then the MLP."""
     h = cm.apply_norm(p["pre_norm"], x, "layernorm", cfg.norm_eps)
-    x = x + cm.gqa_apply(p["attn"], h, cfg, causal=self_kv is None,
+    causal = self_kv is None if causal is None else causal
+    x = x + cm.gqa_apply(p["attn"], h, cfg, causal=causal,
                          use_rope=False, positions=positions, kv=self_kv,
                          kv_valid_len=kv_valid_len)
     h = cm.apply_norm(p["x_norm"], x, "layernorm", cfg.norm_eps)
@@ -225,8 +229,9 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig,
                                    use_rope=False)
         cache["mk"][n] = mk.to(dt)
         cache["mv"][n] = mv.to(dt)
-        x = dec_block_apply(p, x, memory, cfg, positions,
-                            mem_kv=(cache["mk"][n], cache["mv"][n]))
+        x = dec_block_apply(p, x, memory, cfg, None,
+                            mem_kv=(cache["mk"][n], cache["mv"][n]),
+                            self_kv=(k, v), causal=True)
     x = cm.apply_norm(params["dec_norm"], x, "layernorm", cfg.norm_eps)
     logits = cm.logits_apply(params["embed"], x[:, -1:, :], cfg)
     return logits[:, 0], cache

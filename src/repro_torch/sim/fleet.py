@@ -281,6 +281,13 @@ def _gibbs_cells(cst, fG, rG, activeG, KtgtG, keyG, propG, *, M: int,
 # the episode fleet program
 # --------------------------------------------------------------------------
 
+def _rows(rows, device) -> torch.Tensor:
+    """Host-static indices as an int64 tensor on ``device``, uploaded
+    through pinned memory without a host sync (``core.cpsl.to_device``)."""
+    from repro_torch.core.cpsl import to_device
+    return to_device(np.asarray(rows, dtype=np.int64), device)
+
+
 def _simulate(data, *, B: int, L: int, C: int, M: int, K: int, T: int,
               bw: float, kappa: float, f_server_kappa: float,
               f_sigma: float, snr_sigma: float, rho_f: float,
@@ -317,8 +324,7 @@ def _simulate(data, *, B: int, L: int, C: int, M: int, K: int, T: int,
     cst_full = data["cst_full"]
     device = mu_f.device
     E, N = mu_f.shape
-    gi = torch.as_tensor(greedy_rows, dtype=_I64, device=device)
-    pi = torch.as_tensor(proposed_rows, dtype=_I64, device=device)
+    gi, pi = _rows(greedy_rows, device), _rows(proposed_rows, device)
     P = len(proposed_rows)
     by_compute = (data["layout_mode"] == LAYOUT_COMPUTE)[:, None]
     use_churn = p_depart > 0.0
@@ -329,14 +335,13 @@ def _simulate(data, *, B: int, L: int, C: int, M: int, K: int, T: int,
     ckw = dict(B=B, L=L, C=C, f_server_kappa=f_server_kappa, kappa=kappa)
     # rows whose repair re-runs the greedy Alg. 3 (vs equal split)
     grr = tuple(sorted(set(greedy_rows) | set(proposed_rows)))
-    gri = torch.as_tensor(grr, dtype=_I64, device=device)
+    gri = _rows(grr, device)
     n_ar = torch.arange(N, device=device)
     is_res = n_ar >= N - n_reserve if n_reserve \
         else torch.zeros(N, dtype=torch.bool, device=device)
 
     if use_saa:
-        vC = torch.as_tensor([v - 1 for v in saa_cuts], dtype=_I64,
-                             device=device)
+        vC = _rows([v - 1 for v in saa_cuts], device)
         V = len(saa_cuts)
         J = data["saa_eta"].shape[2]
         Rs = data["saa_key"].shape[3]

@@ -2,11 +2,13 @@
 
 Two kinds:
 
-- ``torch.Generator`` roots (``model_generator``, ``sampler_generator``),
-  counterparts of ``repro.streams.model_key`` and ``sampler_key``. A torch
-  generator does not reproduce JAX's threefry draws from the same seed, so
-  tests that compare the two packages make their inputs with numpy and
-  convert the reference's parameters instead of drawing them here.
+- ``torch.Generator`` roots (``model_generator``, ``sampler_generator``,
+  ``warmup_generator``, and ``meta_generator`` for shape-only builds),
+  counterparts of ``repro.streams.model_key``, ``sampler_key`` and
+  ``warmup_key``. A torch generator does not reproduce JAX's threefry
+  draws from the same seed, so tests that compare the two packages make
+  their inputs with numpy and convert the reference's parameters instead
+  of drawing them here.
 - The NumPy stream registry the CPSL control plane draws from, copied
   from ``repro.streams`` with its positions and formulas unchanged, so the
   port's planner decisions, index tables and batches are bit-identical to
@@ -40,6 +42,23 @@ def model_generator(seed: int, device="cuda") -> torch.Generator:
 def sampler_generator(seed: int, device="cuda") -> torch.Generator:
     """Prompt and token-sampling root for the serving demo."""
     return torch.Generator(device=device).manual_seed(int(seed))
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` reads ``meta``: the initialisers
+    draw on ``generator.device``, so from this one they build meta tensors
+    (shapes and dtypes, no storage, nothing drawn)."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def meta_generator() -> torch.Generator:
+    """Root for shape-only builds (the dry run's counterpart of
+    ``jax.eval_shape``): params, optimizer state and caches come out on
+    the ``meta`` device."""
+    return _MetaGenerator().manual_seed(0)
 
 
 def warmup_generator(device="cuda") -> torch.Generator:

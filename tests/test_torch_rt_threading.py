@@ -1,10 +1,11 @@
 """The port's rt runtime keeps the reference's shared-state contracts.
 
-Statically, through the reference's thread lint (``repro.analysis.
-thread_lint``, imported here only: porting ``analysis/`` is a later
-slice): the port's ``rt/`` passes it with no finding, and the thread
-roots of ``RTServer``'s attributes are the reference's — the GRAD/ACK
-replay caches and the ready/round sets are main-thread only, the
+Statically, through the port's own thread lint
+(``repro_torch.analysis.thread_lint``): the port's ``rt/`` passes it with
+no finding, and the thread roots of ``RTServer``'s attributes, computed
+by the port's lint on the port's server, are those the reference's lint
+(``repro.analysis.thread_lint``) computes on the reference's server — the
+GRAD/ACK replay caches and the ready/round sets are main-thread only, the
 connection roster (``channels``/``last_seen``/``dead``) is rooted in the
 main thread and the orchestrator's membership thread, hence locked.
 Dynamically, a hammer: membership-thread ``attach``/``is_attached_live``
@@ -15,7 +16,8 @@ import sys
 import threading
 from pathlib import Path
 
-from repro.analysis import thread_lint
+from repro.analysis import thread_lint as ref_thread_lint
+from repro_torch.analysis import thread_lint
 from repro_torch.rt.server import RTServer
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -29,7 +31,7 @@ def test_port_rt_passes_thread_lint():
 
 def test_server_root_sets_match_reference():
     ours = thread_lint.attr_roots(PORT_SERVER.read_text(), "RTServer")
-    theirs = thread_lint.attr_roots(REF_SERVER.read_text(), "RTServer")
+    theirs = ref_thread_lint.attr_roots(REF_SERVER.read_text(), "RTServer")
     for attr in ("_grad_cache", "_ack_cache", "ready", "_round_dropped",
                  "_round_recovered"):
         assert ours[attr] == theirs[attr] == {"main"}, attr

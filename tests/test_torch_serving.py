@@ -449,7 +449,14 @@ def test_port_never_imports_jax_or_reference():
             "repro_torch.telemetry, repro_torch.sim.dynamics, "
             "repro_torch.sim.controller, repro_torch.sim.engine, "
             "repro_torch.sim.fleet, repro_torch.rt, repro_torch.rt.device, "
-            "repro_torch.rt.crossval, repro_torch.codec, chip_smoke; "
+            "repro_torch.rt.crossval, repro_torch.codec, "
+            "repro_torch.launch.mesh, repro_torch.launch.roofline, "
+            "repro_torch.launch.hlo_analysis, repro_torch.launch.dryrun, "
+            "repro_torch.core.partitioning, repro_torch.analysis, "
+            "repro_torch.analysis.__main__, repro_torch.analysis.report, "
+            "repro_torch.analysis.rng_lint, "
+            "repro_torch.analysis.thread_lint, "
+            "repro_torch.analysis.jit_audit, chip_smoke; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(

@@ -9,10 +9,13 @@ failures is caught:
 
 1. device: the card's name and power limit; builds every kernel from
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel).
-2. kernels: each kernel against its plain PyTorch version on the card, over
-   a sweep of small cases and at the shapes the serving paths give it,
-   timed with CUDA events beside the plain version, a PyTorch library call
-   where one computes the same function, and the card's bound:
+2. kernels: K1's bf16 kernels as ptxas built them (registers, spill bytes
+   and shared memory a block for each head dim; the phase fails if ptxas
+   serialised a bf16 attention kernel's wgmma or one spills); then each
+   kernel against its plain PyTorch version on the card, over a sweep of
+   small cases and at the shapes the serving paths give it, timed with
+   CUDA events beside the plain version, a PyTorch library call where one
+   computes the same function, and the card's bound:
    - flash attention (K1) at gemma2-2b prefill: B*G = 16 kv heads, R = 2,
      S = 5120, D = 256, bf16, softcap 50, window 4096 and 0; at
      deepseek-v2-lite's MLA prefill, q = kv = (64, 4096, 192), and at
@@ -215,6 +218,60 @@ def _ptxas_usage(text: str) -> list:
 # --------------------------------------------------------------------------
 # 2. kernels
 # --------------------------------------------------------------------------
+
+def flash_bf16_build_check() -> list:
+    """K1's bf16 kernels as ptxas built them (the ``-Xptxas=-v`` log of
+    ``csrc/flash_attention.cu``): for each head dim, the kernel that runs
+    there (warp-specialised from D = 64, one warpgroup below), with its
+    registers a thread at launch (the warp-specialised consumers take 240,
+    or 160 at D = 64, by ``setmaxnreg``), spill bytes and shared memory a
+    block (static from the log plus the launcher's dynamic bytes). Fails
+    if ptxas serialised any ``wgmma`` of a bf16 attention kernel or one of
+    them spills."""
+    import re
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fk
+    text = _build.build_log("flash_attention")
+    if not text:
+        raise AssertionError("no ptxas log for csrc/flash_attention.cu")
+    serial = sorted({m.group(1) for m in re.finditer(
+        r"wgmma\.mma_async instructions are serialized.*?'(\w+)'", text)})
+    bad = [f for f in serial if "attn_ws_kernel" in f
+           or "attn_bf16_kernel" in f]
+    if bad:
+        raise AssertionError(f"ptxas serialised wgmma in {bad}")
+    usage, fn = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and "spill stores" in line:
+            usage[fn] = {"spill_bytes": int(re.search(
+                r"(\d+) bytes spill stores", line).group(1))}
+        elif fn and "Used" in line and "registers" in line:
+            smem = re.search(r"(\d+) bytes smem", line)
+            usage.setdefault(fn, {}).update(
+                registers=int(re.search(r"Used (\d+) registers",
+                                        line).group(1)),
+                static_smem=int(smem.group(1)) if smem else 0)
+            fn = None
+    rows = []
+    for D in fk.HEAD_DIMS:
+        name = ("attn_ws_kernel" if D >= 64 else "attn_bf16_kernel") \
+            + f"ILi{D}E"
+        found = [f for f in usage if name in f]
+        if len(found) != 1:
+            raise AssertionError(f"{name}: {len(found)} entries in the "
+                                 "ptxas log")
+        u = usage[found[0]]
+        row = {"D": D, "kernel": name.split("ILi")[0],
+               "registers": u["registers"], "spill_bytes": u["spill_bytes"],
+               "smem_bytes": u["static_smem"] + fk.bf16_smem_bytes(D)}
+        if row["spill_bytes"]:
+            raise AssertionError(f"K1 bf16 at D = {D} spills: {row}")
+        rows.append(row)
+    log("flash_attention bf16 build: " + json.dumps(rows))
+    return rows
+
 
 def _visible_pairs(Sq: int, Skv: int, causal: bool, window: int,
                    q_offset: int = 0) -> int:
@@ -3055,6 +3112,7 @@ def main() -> int:
 
 
 def _main(torch, t_start, smi, table) -> int:
+    k1_build = flash_bf16_build_check()
     sweep = flash_sweep()
     shapes = flash_slice_shapes()
     moe_shapes = flash_moe_shapes()
@@ -3110,7 +3168,8 @@ def _main(torch, t_start, smi, table) -> int:
                         "shapes without softcap: no torch call softcaps)",
         "shape": mla["shape"], "moe_shapes": moe_shapes,
         "whisper_shapes": whisper_shapes,
-        "gemma2_shapes": shapes, "sweep_max_abs_err": sweep}, {
+        "gemma2_shapes": shapes, "sweep_max_abs_err": sweep,
+        "bf16_build": k1_build}, {
         "name": "ssd", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:28",

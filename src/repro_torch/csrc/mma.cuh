@@ -1,6 +1,8 @@
 // Tensor-core and asynchronous-copy helpers shared by the port's kernels
 // (sm_90a): 16-byte cp.async with zero fill, bf16 packing and the hi + lo
-// split, and wgmma with its shared-memory descriptors and swizzled tiles.
+// split, wgmma with its shared-memory descriptors and swizzled tiles, and
+// what warp specialisation needs: mbarriers, TMA loads and stores through
+// tensor maps, setmaxnreg, named barriers and register fences.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -29,6 +31,13 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x on the special-function unit; results below 2^-126 flush to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -77,17 +86,19 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// d += A B, A (64 x 16) and B (16 x N) in shared memory, each K-major
-// (TA, TB = 0) or M-/N-major (TA, TB = 1)
+// d = A B + (accumulate ? d : 0), A (64 x 16) and B (16 x N) in shared
+// memory, each K-major (TA, TB = 0) or M-/N-major (TA, TB = 1)
 template <int N, int TA, int TB>
-__device__ void wgmma_ss(float (&d)[N / 8][4], uint64_t a, uint64_t b);
+__device__ void wgmma_ss(float (&d)[N / 8][4], uint64_t a, uint64_t b,
+                         int accumulate = 1);
 // d += A B, A in registers, B (16 x N) N-major in shared memory
 template <int N>
 __device__ void wgmma_rs_t(float (&d)[N / 8][4], const uint32_t (&a)[4],
                            uint64_t b);
 template <>
 __device__ __forceinline__ void wgmma_ss<32, 0, 0>(float (&d)[4][4],
-                                                   uint64_t a, uint64_t b) {
+                                                   uint64_t a, uint64_t b,
+                                                   int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
@@ -98,12 +109,13 @@ __device__ __forceinline__ void wgmma_ss<32, 0, 0>(float (&d)[4][4],
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
         "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-      : "l"(a), "l"(b), "r"(1)
+      : "l"(a), "l"(b), "r"(accumulate)
       : "memory");
 }
 template <>
 __device__ __forceinline__ void wgmma_ss<64, 0, 0>(float (&d)[8][4],
-                                                   uint64_t a, uint64_t b) {
+                                                   uint64_t a, uint64_t b,
+                                                   int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -119,12 +131,13 @@ __device__ __forceinline__ void wgmma_ss<64, 0, 0>(float (&d)[8][4],
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(a), "l"(b), "r"(1)
+      : "l"(a), "l"(b), "r"(accumulate)
       : "memory");
 }
 template <>
 __device__ __forceinline__ void wgmma_ss<128, 0, 0>(float (&d)[16][4],
-                                                   uint64_t a, uint64_t b) {
+                                                   uint64_t a, uint64_t b,
+                                                   int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -151,12 +164,68 @@ __device__ __forceinline__ void wgmma_ss<128, 0, 0>(float (&d)[16][4],
         "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(a), "l"(b), "r"(1)
+      : "l"(a), "l"(b), "r"(accumulate)
+      : "memory");
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<80, 0, 0>(float (&d)[10][4],
+                                                  uint64_t a, uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3])
+      : "l"(a), "l"(b), "r"(accumulate)
+      : "memory");
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<112, 0, 0>(float (&d)[14][4],
+                                                   uint64_t a, uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, %56, %57, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3])
+      : "l"(a), "l"(b), "r"(accumulate)
       : "memory");
 }
 template <>
 __device__ __forceinline__ void wgmma_ss<16, 1, 1>(float (&d)[2][4],
-                                                   uint64_t a, uint64_t b) {
+                                                   uint64_t a, uint64_t b,
+                                                   int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
@@ -164,12 +233,13 @@ __device__ __forceinline__ void wgmma_ss<16, 1, 1>(float (&d)[2][4],
       "}, %8, %9, p, 1, 1, 1, 1;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
-      : "l"(a), "l"(b), "r"(1)
+      : "l"(a), "l"(b), "r"(accumulate)
       : "memory");
 }
 template <>
 __device__ __forceinline__ void wgmma_ss<32, 1, 1>(float (&d)[4][4],
-                                                   uint64_t a, uint64_t b) {
+                                                   uint64_t a, uint64_t b,
+                                                   int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
@@ -180,12 +250,13 @@ __device__ __forceinline__ void wgmma_ss<32, 1, 1>(float (&d)[4][4],
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
         "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-      : "l"(a), "l"(b), "r"(1)
+      : "l"(a), "l"(b), "r"(accumulate)
       : "memory");
 }
 template <>
 __device__ __forceinline__ void wgmma_ss<64, 1, 1>(float (&d)[8][4],
-                                                   uint64_t a, uint64_t b) {
+                                                   uint64_t a, uint64_t b,
+                                                   int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -201,12 +272,13 @@ __device__ __forceinline__ void wgmma_ss<64, 1, 1>(float (&d)[8][4],
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(a), "l"(b), "r"(1)
+      : "l"(a), "l"(b), "r"(accumulate)
       : "memory");
 }
 template <>
 __device__ __forceinline__ void wgmma_ss<128, 1, 1>(float (&d)[16][4],
-                                                   uint64_t a, uint64_t b) {
+                                                   uint64_t a, uint64_t b,
+                                                   int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -233,7 +305,7 @@ __device__ __forceinline__ void wgmma_ss<128, 1, 1>(float (&d)[16][4],
         "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(a), "l"(b), "r"(1)
+      : "l"(a), "l"(b), "r"(accumulate)
       : "memory");
 }
 template <>
@@ -420,6 +492,58 @@ __device__ __forceinline__ void wgmma_rs_t<256>(float (&d)[32][4],
       : "memory");
 }
 
+// d = A B + (accumulate ? d : 0), A in registers, B (16 x N) K-major in
+// shared memory
+template <int N>
+__device__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4],
+                         uint64_t b, int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[16][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate)
+      : "memory");
+}
+
+// four 8 x 8 bf16 matrices from shared memory, lane l naming row l % 8 of
+// matrix l / 8: the register A operand of one warp's 16 rows at one
+// 16-column k-step when lanes 0-15 name rows 0-15 at column 0 and lanes
+// 16-31 rows 0-15 at column 8
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
 // Swizzled tiles for wgmma. A tile of R rows and WP columns (bf16) is kept
 // in atoms of RB-byte rows, RB = min(128, 2 WP): atom a holds columns
 // [a RB/2, (a+1) RB/2) of all R rows, R x RB bytes, and the 16-byte chunk
@@ -450,6 +574,111 @@ struct Swz {
                      8 * RB, MODE);
   }
 };
+
+// ---------------------------------------------------------------------------
+// Warp specialisation: mbarriers, TMA, register hand-over, named barriers.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+// the barriers' initialisation made visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// one arrival that also expects `bytes` of TMA transactions
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// until the barrier's phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// one box of a 3-D tensor map (a CUtensorMap in kernel parameter space)
+// at element coordinates (c0 innermost, c1, c2) into shared memory; its
+// bytes complete a transaction on `bar`. Coordinates past the tensor's
+// extent read zeros.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// one box of shared memory out to a 3-D tensor map at (c0, c1, c2); parts
+// of the box past the tensor's extent are not written
+__device__ __forceinline__ void tma_store_3d(const void* map,
+                                             const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// this thread's TMA stores committed, and their shared-memory reads done
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// a warpgroup's register budget, raised or lowered (all 128 threads)
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// named barrier `id` over `n` threads: wait, or arrive without waiting
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// pins registers that an asynchronous wgmma reads or writes: the compiler
+// may not move their uses across this point
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(d[i][e])::"memory");
+}
 
 // rows [0, rows) and columns [0, W) of a row-major bf16 source with row
 // stride `ld` (elements) into a swizzled R x WP tile; the rest is zero

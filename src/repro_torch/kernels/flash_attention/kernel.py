@@ -13,6 +13,10 @@ counter cannot see a launch through ctypes).
 wants to show a run went through the kernel sets it to 0 before the run and
 reads it after.
 
+The bf16 kernels read q, k and v in 16-byte pieces (TMA, ``cp.async``), so
+a bf16 input whose base is not 16-byte aligned is refused, on the card and
+on meta alike.
+
 The kernel's output has no gradient. Training reaches it only through
 ``ops.flash_attention``'s ``autograd.Function``, so the wrapper refuses an
 input that requires grad while grad mode is on: autograd would otherwise
@@ -42,6 +46,8 @@ def _lib():
     lib.flash_attention_fwd.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i,
                                         i, f, i, f, vp]
     lib.flash_attention_fwd.restype = i
+    lib.flash_attention_bf16_smem.argtypes = [i]
+    lib.flash_attention_bf16_smem.restype = i
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -61,6 +67,15 @@ def _check(q, k, v, kv_repeat: int):
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on different devices: {q.device}, "
                          f"{k.device}, {v.device}")
+
+
+def bf16_smem_bytes(D: int) -> int:
+    """Dynamic shared memory a block of the bf16 kernel at head dim ``D``;
+    builds the library."""
+    got = _lib().flash_attention_bf16_smem(D)
+    if got < 0:
+        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    return got
 
 
 def flash_attention_flat(q, k, v, *, causal: bool = True, window: int = 0,
@@ -88,6 +103,10 @@ def flash_attention_flat(q, k, v, *, causal: bool = True, window: int = 0,
     if BH > 65535 or q_offset < 0 or window < 0:
         raise ValueError(f"unsupported BH={BH}, q_offset={q_offset}, "
                          f"window={window}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("bf16 q, k, v need 16-byte aligned bases (the "
+                         "kernel reads them in 16-byte pieces)")
     out = torch.empty_like(q)
     if Sq == 0 or BH == 0:
         return out

@@ -59,6 +59,9 @@ FLAT_CASES = [
     (2, 2, 200, 200, 16, True, 48, 50.0, 0),
     (2, 2, 96, 96, 256, True, 32, 50.0, 0),
     (1, 2, 5, 77, 128, True, 16, 0.0, 72),
+    # GQA at R = 4 (phi3.5-moe, jamba); q_offset > 0 with a window
+    (2, 4, 255, 255, 128, True, 0, 0.0, 0),
+    (1, 4, 100, 300, 128, True, 50, 0.0, 200),
 ]
 
 
@@ -83,9 +86,10 @@ def test_flash_kernel_vs_plain(cuda, dtype, BHkv, R, Sq, Skv, D, causal,
     assert err < (F32_TOL if dtype == torch.float32 else BF16_TOL)
 
 
-# bf16 cases at the edges of the tensor-core kernel's tiles (64 query rows;
-# 64 keys, 32 at D = 256): Sq and Skv off the tile grid, a window edge
-# inside a tile, q_offset > 0, a non-causal ragged Skv
+# bf16 cases at the edges of the tensor-core kernels' tiles (64 query rows
+# a warpgroup, 128 or 192 a block; 80 to 128 keys a tile at D >= 64): Sq
+# and Skv off the tile grid, a window edge inside a tile, q_offset > 0, a
+# non-causal ragged Skv, Skv shorter than one key tile
 # (BHkv, R, Sq, Skv, D, causal, window, softcap, q_offset)
 TILE_EDGE_CASES = [
     (2, 2, 130, 130, 256, True, 40, 50.0, 0),
@@ -94,6 +98,9 @@ TILE_EDGE_CASES = [
     (2, 1, 65, 300, 256, True, 100, 50.0, 235),
     (2, 1, 70, 150, 32, False, 0, 0.0, 0),
     (1, 1, 1, 97, 16, True, 0, 50.0, 96),
+    (2, 1, 20, 30, 128, True, 0, 0.0, 10),
+    (2, 4, 64, 40, 64, False, 0, 0.0, 0),
+    (2, 1, 100, 200, 256, True, 30, 50.0, 100),
 ]
 
 
@@ -115,13 +122,17 @@ def test_flash_kernel_bf16_tile_edges(cuda, BHkv, R, Sq, Skv, D, causal,
 
 # head dim 192 (deepseek-v2-lite's MLA prefill: qk_nope 128 + qk_rope 64),
 # three 128-byte swizzle atoms a row: causal, windowed, GQA, softcap, off
-# the tile grid; (BHkv, R, Sq, Skv, causal, window, softcap, q_offset)
+# the tile grid, a window with softcap and q_offset > 0, Skv shorter than
+# one key tile; (BHkv, R, Sq, Skv, causal, window, softcap, q_offset)
 D192_CASES = [
     (4, 1, 256, 256, True, 0, 0.0, 0),
     (2, 1, 200, 200, True, 64, 0.0, 0),
     (2, 2, 130, 130, True, 40, 50.0, 0),
     (2, 1, 77, 203, True, 0, 0.0, 126),
     (3, 1, 96, 160, False, 0, 0.0, 0),
+    (2, 1, 129, 129, True, 64, 50.0, 7),
+    (1, 1, 65, 100, True, 32, 50.0, 35),
+    (2, 1, 40, 30, False, 0, 0.0, 0),
 ]
 
 
@@ -143,6 +154,55 @@ def test_flash_kernel_d192_vs_plain(cuda, dtype, BHkv, R, Sq, Skv, causal,
     want = attention_ref(q, k, v, **kw)
     err = (got.float() - want.float()).abs().max().item()
     assert err < (F32_TOL if dtype == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.parametrize("D", [64, 128, 192])
+@pytest.mark.parametrize("Sq", [1, 63, 64, 65, 127, 128, 129, 255])
+def test_flash_kernel_bf16_query_edges(cuda, Sq, D):
+    """Sq around the 64-row warpgroup and the 128- or 192-row block:
+    causal self-attention, GQA at R = 4 where D = 128."""
+    gen = torch.Generator(device=cuda).manual_seed(Sq)
+    R = 4 if D == 128 else 1
+    q = _randn(gen, 2 * R, Sq, D, dtype=torch.bfloat16)
+    k = _randn(gen, 2, Sq, D, dtype=torch.bfloat16)
+    v = _randn(gen, 2, Sq, D, dtype=torch.bfloat16)
+    kw = dict(causal=True, window=0, softcap=0.0, q_offset=0, kv_repeat=R)
+    got = fk.flash_attention_flat(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, **kw)
+    assert (got.float() - want.float()).abs().max().item() < BF16_TOL
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 192, 256])
+def test_flash_kernel_bf16_window_softcap_ragged(cuda, D):
+    """Each head dim's bf16 kernel (one-warpgroup below 64, warp-specialised
+    from 64) against the plain version: a window edge, softcap, q_offset
+    and a ragged Sq and Skv in one call."""
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    q = _randn(gen, 4, 150, D, dtype=torch.bfloat16)
+    k = _randn(gen, 2, 170, D, dtype=torch.bfloat16)
+    v = _randn(gen, 2, 170, D, dtype=torch.bfloat16)
+    kw = dict(causal=True, window=90, softcap=50.0, q_offset=20,
+              kv_repeat=2)
+    before = fk.launches
+    got = fk.flash_attention_flat(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fk.launches == before + 1
+    want = attention_ref(q, k, v, **kw)
+    assert (got.float() - want.float()).abs().max().item() < BF16_TOL
+
+
+def test_flash_kernel_refuses_misaligned_bf16(cuda):
+    """A bf16 view one element past an aligned base: the TMA maps need
+    16-byte aligned bases, so the wrapper raises before any launch."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    flat = _randn(gen, 1 + 2 * 64 * 64, dtype=torch.bfloat16)
+    q = flat[1:].view(2, 64, 64)
+    k = _randn(gen, 2, 64, 64, dtype=torch.bfloat16)
+    before = fk.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fk.flash_attention_flat(q, k, k)
+    assert fk.launches == before
 
 
 def test_flash_kernel_rejects_unsupported_head_dim(cuda):

@@ -6,6 +6,8 @@ The JAX flash kernel runs in Pallas interpret mode, as its own tests run
 it. The CUDA kernel itself is tested on the card by
 ``tests/test_torch_cuda.py``.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -99,6 +101,32 @@ def test_flat_wrapper_rejects_bad_inputs(bad, exc):
         q = q.double()
     with pytest.raises(exc):
         fk.flash_attention_flat(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("which,offset,refused", [
+    ("q", 1, True), ("k", 1, True), ("v", 1, True), ("q", 8, False)])
+def test_flat_wrapper_refuses_a_misaligned_bf16_view(which, offset,
+                                                      refused):
+    """The bf16 kernels read q, k, v in 16-byte pieces (TMA boxes,
+    cp.async): a meta view one element (2 bytes) past an aligned base is
+    refused before any launch, as it is on the card; eight elements (16
+    bytes) pass."""
+    shapes = {"q": (4, 64, 64), "k": (2, 64, 64), "v": (2, 64, 64)}
+    t = {}
+    for name, shape in shapes.items():
+        off = offset if name == which else 0
+        flat = torch.empty(off + math.prod(shape), dtype=torch.bfloat16,
+                           device="meta")
+        t[name] = flat[off:].view(shape)
+    assert t[which].storage_offset() == offset
+    before = fk.launches
+    if refused:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fk.flash_attention_flat(t["q"], t["k"], t["v"], kv_repeat=2)
+    else:
+        out = fk.flash_attention_flat(t["q"], t["k"], t["v"], kv_repeat=2)
+        assert (out.shape, out.device.type) == (t["q"].shape, "meta")
+    assert fk.launches == before
 
 
 @pytest.mark.parametrize("causal,window,cap,q_offset", [

@@ -219,6 +219,27 @@ def _ptxas_usage(text: str) -> list:
 # 2. kernels
 # --------------------------------------------------------------------------
 
+def _ptxas_entries(text: str) -> dict:
+    """{mangled kernel: {registers, spill_bytes, static_smem}} from an nvcc
+    ``-Xptxas=-v`` log."""
+    import re
+    usage, fn = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and "spill stores" in line:
+            usage[fn] = {"spill_bytes": int(re.search(
+                r"(\d+) bytes spill stores", line).group(1))}
+        elif fn and "Used" in line and "registers" in line:
+            smem = re.search(r"(\d+) bytes smem", line)
+            usage.setdefault(fn, {}).update(
+                registers=int(re.search(r"Used (\d+) registers",
+                                        line).group(1)),
+                static_smem=int(smem.group(1)) if smem else 0)
+            fn = None
+    return usage
+
+
 def flash_bf16_build_check() -> list:
     """K1's bf16 kernels as ptxas built them (the ``-Xptxas=-v`` log of
     ``csrc/flash_attention.cu``): for each head dim, the kernel that runs
@@ -240,20 +261,7 @@ def flash_bf16_build_check() -> list:
            or "attn_bf16_kernel" in f]
     if bad:
         raise AssertionError(f"ptxas serialised wgmma in {bad}")
-    usage, fn = {}, None
-    for line in text.splitlines():
-        if "Compiling entry function" in line:
-            fn = line.split("'")[1]
-        elif fn and "spill stores" in line:
-            usage[fn] = {"spill_bytes": int(re.search(
-                r"(\d+) bytes spill stores", line).group(1))}
-        elif fn and "Used" in line and "registers" in line:
-            smem = re.search(r"(\d+) bytes smem", line)
-            usage.setdefault(fn, {}).update(
-                registers=int(re.search(r"Used (\d+) registers",
-                                        line).group(1)),
-                static_smem=int(smem.group(1)) if smem else 0)
-            fn = None
+    usage = _ptxas_entries(text)
     rows = []
     for D in fk.HEAD_DIMS:
         name = ("attn_ws_kernel" if D >= 64 else "attn_bf16_kernel") \
@@ -270,6 +278,44 @@ def flash_bf16_build_check() -> list:
             raise AssertionError(f"K1 bf16 at D = {D} spills: {row}")
         rows.append(row)
     log("flash_attention bf16 build: " + json.dumps(rows))
+    return rows
+
+
+def ssd_build_check() -> list:
+    """K2's bf16 kernels as ptxas built them (the ``-Xptxas=-v`` log of
+    ``csrc/ssd.cu``): for each (N, P) the chained kernel's registers a
+    thread (at most 168 in a block of 288), spill bytes and shared memory
+    a block (static from the log plus the launcher's dynamic bytes). Fails
+    if ptxas serialised any ``wgmma`` of a chained kernel or one of them
+    spills."""
+    import re
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd import kernel as sk
+    text = _build.build_log("ssd")
+    if not text:
+        raise AssertionError("no ptxas log for csrc/ssd.cu")
+    serial = sorted({m.group(1) for m in re.finditer(
+        r"wgmma\.mma_async instructions are serialized.*?'(\w+)'", text)})
+    if serial:
+        raise AssertionError(f"ptxas serialised wgmma in {serial}")
+    usage = _ptxas_entries(text)
+    rows = []
+    for N in sk.STATE_DIMS:
+        for P in sk.STATE_DIMS:
+            name = f"ssd_chain_kernelILi{N}ELi{P}E"
+            found = [f for f in usage if name in f]
+            if len(found) != 1:
+                raise AssertionError(f"{name}: {len(found)} entries in the "
+                                     "ptxas log")
+            u = usage[found[0]]
+            rows.append({"N": N, "P": P, "registers": u["registers"],
+                         "spill_bytes": u["spill_bytes"],
+                         "smem_bytes": u["static_smem"]
+                         + sk.bf16_smem_bytes(N, P)})
+    log("ssd bf16 build: " + json.dumps(rows))
+    spills = [r for r in rows if r["spill_bytes"]]
+    if spills:
+        raise AssertionError(f"K2 bf16 spills: {spills}")
     return rows
 
 
@@ -667,14 +713,22 @@ def ssd_shapes() -> dict:
         err = _ssd_err(got, plain(args))
         if not err < SSD_BF16_TOL:
             raise AssertionError(f"ssd {label} shape: max abs err {err}")
+        # the chain's result does not depend on which block ran what
+        again = [kernel(args) for _ in range(2)]
+        if not all(torch.equal(a[0], got[0]) and torch.equal(a[1], got[1])
+                   for a in again):
+            raise AssertionError(f"ssd {label} shape: three calls differ")
+        del again
         bound_ms, bound_by, terms = _ssd_bound_ms(b, S, h, g, P, N, Q,
                                                   torch.bfloat16)
         rows[label] = {
             "shape": f"{shape}, bf16, chunk {Q}", "max_abs_err": err,
+            "bit_equal_3_calls": True,
             "ms": time_ms(lambda: kernel(args), 10),
             "plain_ms": time_ms(lambda: plain(args), 2),
             "bound_ms": bound_ms, "bound_by": bound_by, **terms,
-            # the call's CUDA kernels (three in bf16), one profiled call
+            # the call's CUDA kernels (the chained pass and the flag
+            # reset in bf16), one profiled call
             "kernels_ms": device_profile(lambda: kernel(args))["top"]}
         log(f"ssd {label} shape: " + json.dumps(rows[label]))
         del args, got
@@ -730,8 +784,9 @@ def ssd_jamba_shape() -> dict:
 def ssd_short_chunks() -> list:
     """K2 at mamba2-2.7b's model-path width (B = 4, H = 80, one group)
     with prompts whose chunk rule gives Q = 1 (8191 tokens) and Q = 2
-    (8190): the peak memory of a call (its scratch is one window of
-    chunks), its time, and its error against the sequential scan."""
+    (8190): the peak memory of a call beyond its inputs (y, hT and the
+    chain's scratch: two state slots and a flag a head), its time, and its
+    error against the sequential scan."""
     import torch
     from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.kernels.ssd import ops as ssd_ops
@@ -761,7 +816,7 @@ def ssd_short_chunks() -> list:
             raise AssertionError(f"ssd S={S}: max abs err {err} vs scan")
         Q = sk.chunk_len(S, 256)
         row = {"S": S, "Q": Q, "max_abs_err_vs_scan": err,
-               "window_chunks": sk.window_chunks(B_ * H, S // Q, Q, P, N),
+               "scratch_mb": sk.scratch_bytes(B_ * H, P, N) / 2**20,
                "peak_extra_mb": extra_mb,
                "ms": time_ms(lambda: ssd_ops.ssd(x, dt, A, Bm, Cm,
                                                  chunk=256), 2)}
@@ -3113,6 +3168,7 @@ def main() -> int:
 
 def _main(torch, t_start, smi, table) -> int:
     k1_build = flash_bf16_build_check()
+    k2_build = ssd_build_check()
     sweep = flash_sweep()
     shapes = flash_slice_shapes()
     moe_shapes = flash_moe_shapes()
@@ -3179,13 +3235,15 @@ def _main(torch, t_start, smi, table) -> int:
         "ms": ssd_jamba["ms"], "plain_ms": ssd_jamba["plain_ms"],
         "bound_ms": ssd_jamba["bound_ms"],
         "bound_by": ssd_jamba["bound_by"], "library_ms": None,
-        "per": "wrapper call (three CUDA kernels in bf16) at the shape "
-               "jamba's prefill gives it (N = 16), once per Mamba layer; "
-               "launches: the moe_serve jamba generate",
+        "per": "wrapper call (one chained CUDA kernel in bf16, after a "
+               "flag reset) at the shape jamba's prefill gives it (N = 16), "
+               "once per Mamba layer; launches: the moe_serve jamba "
+               "generate",
         "library_call": "none: no single PyTorch call computes the SSD scan",
         "shape": ssd_jamba["shape"], "mamba2_shape": ssd_model,
         "mamba2_flat_shape": ssd_flat_row,
-        "short_chunks": ssd_short, "sweep_max_abs_err": ssd_worst}]
+        "short_chunks": ssd_short, "sweep_max_abs_err": ssd_worst,
+        "bf16_build": k2_build}]
     print(json.dumps({"moe_serve": moe}))
     print(json.dumps({"whisper_serve": whisper}))
     print(json.dumps({"train": train}))

@@ -74,6 +74,7 @@
 #include <cstdint>
 
 #include "mma.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -799,50 +800,16 @@ int set_smem(const void* kern, int bytes) {
 
 constexpr int ERR_TMA = -2;
 
-// cuTensorMapEncodeTiled, a driver API function, through the runtime's
-// entry-point query (the library links the runtime only)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  void* fn = nullptr;
-  cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-  if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
-                                       cudaEnableDefault, &found) !=
-      cudaSuccess)
-    return nullptr;
-#else
-  if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                              cudaEnableDefault, &found) != cudaSuccess)
-    return nullptr;
-#endif
-  return found == cudaDriverEntryPointSuccess
-             ? reinterpret_cast<EncodeTiled>(fn)
-             : nullptr;
-}
-
 // a bf16 (heads, rows, D) tensor as a 3-D map read in 128-byte swizzled
 // boxes of 64 columns by `box_rows` rows of one head
 bool tensor_map(CUtensorMap* map, const void* base, int D, int rows,
                 int heads, int box_rows) {
-  static const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(rows),
                               cuuint64_t(heads)};
   const cuuint64_t strides[2] = {cuuint64_t(D) * 2,
                                  cuuint64_t(rows) * cuuint64_t(D) * 2};
   const cuuint32_t box[3] = {64, cuuint32_t(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tma::bf16_map(map, base, 3, dims, strides, box, 128);
 }
 
 template <int D>

@@ -1,7 +1,8 @@
 // Tensor-core and asynchronous-copy helpers shared by the port's kernels
 // (sm_90a): 16-byte cp.async with zero fill, bf16 packing and the hi + lo
-// split, wgmma with its shared-memory descriptors and swizzled tiles, and
-// what warp specialisation needs: mbarriers, TMA loads and stores through
+// split, wgmma with its shared-memory descriptors and swizzled tiles,
+// ldmatrix (plain and transposed), and what warp specialisation needs:
+// mbarriers (with a bounded wait), TMA loads and stores through 3- and 4-D
 // tensor maps, setmaxnreg, named barriers and register fences.
 #pragma once
 
@@ -95,6 +96,20 @@ __device__ void wgmma_ss(float (&d)[N / 8][4], uint64_t a, uint64_t b,
 template <int N>
 __device__ void wgmma_rs_t(float (&d)[N / 8][4], const uint32_t (&a)[4],
                            uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_ss<16, 0, 0>(float (&d)[2][4],
+                                                   uint64_t a, uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "l"(a), "l"(b), "r"(accumulate)
+      : "memory");
+}
 template <>
 __device__ __forceinline__ void wgmma_ss<32, 0, 0>(float (&d)[4][4],
                                                    uint64_t a, uint64_t b,
@@ -544,6 +559,19 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
       : "memory");
 }
 
+// the same four matrices transposed: lane l names row l % 8 of matrix
+// l / 8 as stored, and each thread receives the elements (2t, 2t+1) x g of
+// every matrix, the register A operand of a tile stored K-major by rows
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
 // Swizzled tiles for wgmma. A tile of R rows and WP columns (bf16) is kept
 // in atoms of RB-byte rows, RB = min(128, 2 WP): atom a holds columns
 // [a RB/2, (a+1) RB/2) of all R rows, R x RB bytes, and the 16-byte chunk
@@ -613,6 +641,30 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
+// mbar_wait that gives up: after ~2^34 clocks (about 10 s) without the
+// phase completing the kernel traps, so that a deadlock fails the next
+// synchronize instead of hanging the card
+__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar,
+                                                  uint32_t parity) {
+  long long start = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, P1;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    const long long now = clock64();
+    if (start == 0)
+      start = now;
+    else if (now - start > (1ll << 34))
+      __trap();
+  }
+}
+
 // one box of a 3-D tensor map (a CUtensorMap in kernel parameter space)
 // at element coordinates (c0 innermost, c1, c2) into shared memory; its
 // bytes complete a transaction on `bar`. Coordinates past the tensor's
@@ -625,6 +677,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the same through a 4-D tensor map at (c0 innermost, c1, c2, c3)
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 

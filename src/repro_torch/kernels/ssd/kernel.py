@@ -18,18 +18,20 @@ computes nothing. On the card and on meta it reports the call to
 through ctypes).
 
 ``launches`` counts wrapper calls that launched the kernel in this process
-(one call runs three CUDA kernels for each window of chunks in bf16, one
-kernel in float32); a caller that wants to show a run went through the
-kernel sets it to 0 before the run and reads it after.
+(one call runs two CUDA kernels in bf16, the chained pass and the small
+kernel that first zeroes its flags; one kernel in float32); a caller that
+wants to show a run went through the kernel sets it to 0 before the run
+and reads it after.
 
 The kernel's outputs have no gradient: in grad mode the wrappers refuse an
 input that requires grad (``no_grad_inputs``), and training reaches the
 kernel only through ``ops.ssd``'s ``autograd.Function``.
 
-The bf16 path keeps per-chunk scratch (the chunk states and each chunk's
-incoming state) for one window of chunks at a time; ``SCRATCH_BYTES``
-bounds it (or one chunk's worth, where that is more), whatever the number
-of chunks S / Q.
+The bf16 path is one chained pass over the chunks: each (batch, head)
+carries its state from one item of chunks to the next through two f32
+slots in device memory, ordered by a flag. Its scratch (``scratch``) is
+the slots, the flags and a ticket counter, ``scratch_bytes`` in all,
+whatever the number of chunks S / Q.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ from repro_torch.kernels.ssd.ref import ssd_grouped_ref
 
 STATE_DIMS = (16, 32, 64, 128)     # the N and P the kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SCRATCH_BYTES = 512 << 20          # the bf16 path's scratch, at most
+FLAG_BYTES = 4                     # an int32 flag a (batch, head)
 
 launches = 0
 
@@ -52,13 +54,24 @@ launches = 0
 def _lib():
     lib = _build.load("ssd")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i,
-                            i, i, i, i, i, i,
+    lib.ssd_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i,
+                            i, i, i, i,
                             ctypes.POINTER(ctypes.c_longlong), vp]
     lib.ssd_fwd.restype = i
+    lib.ssd_bf16_smem.argtypes = [i, i]
+    lib.ssd_bf16_smem.restype = i
     lib.ssd_error_string.argtypes = [i]
     lib.ssd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def bf16_smem_bytes(N: int, P: int) -> int:
+    """Dynamic shared memory a block of the bf16 kernel at (N, P); builds
+    the library."""
+    got = _lib().ssd_bf16_smem(N, P)
+    if got < 0:
+        raise ValueError(f"N={N}, P={P}: each must be in {STATE_DIMS}")
+    return got
 
 
 def chunk_len(S: int, chunk: int) -> int:
@@ -83,15 +96,18 @@ def _check_types(x, dt, A, Bm, Cm):
         raise ValueError("x, dt, A, Bm, Cm on different devices")
 
 
-def window_chunks(BH: int, nc: int, Q: int, P: int, N: int) -> int:
-    """Chunks per window of the bf16 path: as many of the nc as fit their
-    scratch (cum, the f32 chunk state and the bf16 hi + lo incoming state
-    of each of the BH heads) in ``SCRATCH_BYTES``, at least one, spread
-    evenly over the windows."""
-    per_chunk = BH * (4 * Q + 8 * P * N)
-    most = max(1, min(nc, SCRATCH_BYTES // max(per_chunk, 1)))
-    windows = -(-nc // most)
-    return -(-nc // windows)
+def scratch_bytes(BH: int, P: int, N: int) -> int:
+    """The bf16 path's scratch for BH (batch, head) pairs: two f32 (P, N)
+    state slots and a flag each, and one int32 ticket counter."""
+    return BH * (2 * N * P * 4 + FLAG_BYTES) + 4
+
+
+def scratch(BH: int, P: int, N: int, device):
+    """The bf16 path's scratch, uninitialised (the kernel zeroes the flags
+    and the ticket on its stream): slots (BH, 2, P, N) f32 and flags
+    (BH + 1,) int32, the last the ticket counter."""
+    return (torch.empty((BH, 2, P, N), dtype=torch.float32, device=device),
+            torch.empty((BH + 1,), dtype=torch.int32, device=device))
 
 
 def _check_grouped(x, dt, A, Bm, Cm):
@@ -125,26 +141,18 @@ def _launch(x, dt, A, Bm, Cm, y, Q: int) -> torch.Tensor:
     if x.dtype == torch.bfloat16 and any(
             t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1])
             for t in (x, Bm, Cm)):
-        # the bf16 path copies rows 16 bytes at a time
+        # the bf16 path reads them by TMA: 16-byte aligned base and strides
         raise ValueError("bf16 x, Bm, Cm need 16-byte aligned rows: base "
                          "and strides a multiple of 8 elements")
     A = A.contiguous()
     hT = torch.empty((B_, H, N, P), dtype=torch.float32, device=x.device)
     if B_ * H == 0:
         return hT
-    win = 1
     if x.dtype == torch.bfloat16:
-        # one window's cumsums, chunk states (f32) and incoming states as
-        # bf16 hi + lo, the last two as transposes (P, N)
-        win = window_chunks(B_ * H, S // Q, Q, P, N)
-        f32 = dict(dtype=torch.float32, device=x.device)
-        cum = torch.empty((B_ * H, win * Q), **f32)
-        states = torch.empty((B_ * H, win, P, N), **f32)
-        hin = torch.empty((B_ * H, win, 2, P, N), dtype=torch.bfloat16,
-                          device=x.device)
-        scratch = (cum.data_ptr(), states.data_ptr(), hin.data_ptr())
+        slots, flags = scratch(B_ * H, P, N, x.device)
+        ptrs = (slots.data_ptr(), flags.data_ptr())
     else:
-        scratch = (None, None, None)
+        ptrs = (None, None)
     if x.device.type == "meta":
         record_call("ssd", (x, dt, A, Bm, Cm), (y, hT))
         return hT
@@ -156,8 +164,8 @@ def _launch(x, dt, A, Bm, Cm, y, Q: int) -> torch.Tensor:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_fwd(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                           Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
-                          hT.data_ptr(), *scratch, _DTYPES[x.dtype], B_, S,
-                          H, H // G, Q, win, N, P, strides, stream)
+                          hT.data_ptr(), *ptrs, _DTYPES[x.dtype], B_, S, H,
+                          H // G, Q, N, P, strides, stream)
     if err != 0:
         raise RuntimeError("ssd kernel launch failed: "
                            + lib.ssd_error_string(err).decode())

@@ -16,9 +16,11 @@ def _copy_csrc(tmp_path, monkeypatch):
 def test_every_source_and_header_is_in_the_tree():
     assert _build.sources() == ["flash_attention", "ssd"]
     headers = sorted(p.name for p in _build.CSRC.glob("*.cuh"))
-    assert headers == ["mma.cuh"]
+    assert headers == ["mma.cuh", "tma.cuh"]
     for name in _build.sources():
-        assert '#include "mma.cuh"' in (_build.CSRC / f"{name}.cu").read_text()
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        # both kernels share the wgmma helpers and the TMA map encoder
+        assert '#include "mma.cuh"' in text and '#include "tma.cuh"' in text
 
 
 def test_editing_a_shared_header_changes_every_target(tmp_path, monkeypatch):

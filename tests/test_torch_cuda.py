@@ -266,6 +266,16 @@ SSD_CASES = [
     # dtype), chunks of 64 in f32 (the reduced models' path)
     (2, 512, 64, 16, 256, torch.bfloat16, False),
     (2, 512, 64, 16, 64, torch.float32, False),
+    # the bf16 chain's edges: one item a head (nc = 1), two (the slots'
+    # first reuse), and BH below the SM count and not a divisor of it
+    (5, 256, 64, 128, 256, torch.bfloat16, False),
+    (3, 512, 64, 128, 256, torch.bfloat16, False),
+    (7, 768, 32, 64, 256, torch.bfloat16, False),
+    # P = 128: items of 128 rows, two to a chunk of 256
+    (2, 512, 128, 128, 256, torch.bfloat16, False),
+    # Q = 1 over more than one item of 256 chunks; Q = 100 over three
+    (3, 1023, 64, 128, 256, torch.bfloat16, False),
+    (2, 300, 64, 128, 100, torch.bfloat16, False),
 ]
 
 
@@ -329,6 +339,12 @@ GROUPED_CASES = [
     (2, 200, 8, 2, 32, 64, 256, torch.bfloat16),
     (1, 256, 8, 2, 32, 32, 64, torch.float32),
     (2, 512, 8, 1, 64, 16, 256, torch.bfloat16),    # jamba's N and P
+    # the chain's edges: heads per group 1 and 8, nc = 1 and 2, Q = 1
+    # (an odd S) and Q = 100, B * H below the SM count
+    (1, 512, 8, 8, 64, 128, 256, torch.bfloat16),
+    (3, 256, 16, 2, 64, 128, 256, torch.bfloat16),
+    (2, 511, 5, 1, 64, 128, 256, torch.bfloat16),
+    (3, 300, 4, 2, 64, 128, 100, torch.bfloat16),
 ]
 
 
@@ -375,8 +391,9 @@ def _grouped_vs_scan(x, dt, A, Bm, Cm, y, hT):
 def test_ssd_serving_width_short_chunks(cuda, S):
     """mamba2-2.7b's width (B = 4, H = 80, one group, P = 64, N = 128) at
     prompt lengths whose chunk rule gives Q = 1 (odd S) and Q = 2: the
-    scratch stays within one window's budget, and the result agrees with
-    the sequential scan."""
+    call holds its outputs and the chain's scratch (two state slots and a
+    flag a head) and no more, and the result agrees with the sequential
+    scan."""
     gen = torch.Generator(device=cuda).manual_seed(7)
     args = _packed_model_layout(gen, 4, S, 80, 1, 64, 128, torch.bfloat16)
     torch.cuda.synchronize()
@@ -386,27 +403,51 @@ def test_ssd_serving_width_short_chunks(cuda, S):
     torch.cuda.synchronize()
     outputs = y.numel() * y.element_size() + hT.numel() * 4
     assert torch.cuda.max_memory_allocated() - base <= (
-        outputs + sk.SCRATCH_BYTES + (64 << 20))
+        outputs + sk.scratch_bytes(4 * 80, 64, 128) + (4 << 20))
     assert bool(torch.isfinite(y.float()).all() and torch.isfinite(hT).all())
     err_y, err_h = _grouped_vs_scan(*args, y, hT)
     assert err_y < SSD_BF16_TOL and err_h < SSD_BF16_TOL
 
 
-def test_ssd_windows_agree_with_one_window(cuda, monkeypatch):
-    """A scratch budget of about two chunks splits the call into windows
-    whose state passes through hT in f32: the result is the one-window
-    result, bit for bit."""
+def test_ssd_chain_agrees_with_one_head_at_a_time(cuda):
+    """The chain's result does not depend on which blocks take which items:
+    heads run together (many chains, tickets shared) give, bit for bit,
+    what each head gives alone (one chain, its items in turn); 4 items a
+    head, so each state slot is reused."""
     gen = torch.Generator(device=cuda).manual_seed(8)
-    args = _packed_model_layout(gen, 2, 512, 8, 2, 64, 128, torch.bfloat16)
-    y1, h1 = ssd_ops.ssd(*args, chunk=64)
-    BH, Q = 16, 64
-    monkeypatch.setattr(sk, "SCRATCH_BYTES", 2 * BH * (4 * Q + 8 * 64 * 128))
-    assert sk.window_chunks(BH, 8, Q, 64, 128) == 2
-    y4, h4 = ssd_ops.ssd(*args, chunk=64)
-    torch.cuda.synchronize()
-    assert torch.equal(y1, y4) and torch.equal(h1, h4)
-    err_y, err_h = _grouped_vs_scan(*args, y4, h4)
+    args = _packed_model_layout(gen, 2, 1024, 8, 2, 64, 128, torch.bfloat16)
+    y, hT = ssd_ops.ssd(*args, chunk=256)
+    x, dt, A, Bm, Cm = args
+    for b in (0, 1):
+        for h in (0, 5):
+            g = h // 4
+            one = (x[b:b + 1, :, h:h + 1], dt[b:b + 1, :, h:h + 1],
+                   A[h:h + 1], Bm[b:b + 1, :, g:g + 1],
+                   Cm[b:b + 1, :, g:g + 1])
+            y1, h1 = ssd_ops.ssd(*one, chunk=256)
+            assert torch.equal(y1[0, :, 0], y[b, :, h])
+            assert torch.equal(h1[0, 0], hT[b, h])
+    err_y, err_h = _grouped_vs_scan(*args, y, hT)
     assert err_y < SSD_BF16_TOL and err_h < SSD_BF16_TOL
+
+
+def test_ssd_repeated_calls_bit_equal(cuda):
+    """Three calls in a row, and calls on two streams one after the other,
+    give bit-equal y and hT: the flags and the ticket are reset on each
+    call's stream, and no sum depends on the order blocks run in."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    args = _packed_model_layout(gen, 2, 1024, 8, 1, 64, 128, torch.bfloat16)
+    outs = [ssd_ops.ssd(*args, chunk=256) for _ in range(3)]
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    s1.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s1):
+        outs.append(ssd_ops.ssd(*args, chunk=256))
+    s2.wait_stream(s1)
+    with torch.cuda.stream(s2):
+        outs.append(ssd_ops.ssd(*args, chunk=256))
+    torch.cuda.synchronize()
+    for y, hT in outs[1:]:
+        assert torch.equal(y, outs[0][0]) and torch.equal(hT, outs[0][1])
 
 
 def test_ssd_many_short_chunks_fit_the_grid(cuda):

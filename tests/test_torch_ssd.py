@@ -221,22 +221,37 @@ def test_mamba_apply_kernel_path_matches_reference(ngroups, monkeypatch):
     (320, 8191, 1, 64, 128),      # an odd prompt: Q = 1
     (320, 4095, 2, 64, 128),      # S = 2 mod 4: Q = 2
     (320, 1025, 8, 64, 128),      # S = 8200: Q = 8
-    (4, 3, 100, 16, 16),          # a short prompt: one window
-    (100000, 4, 256, 128, 128),   # one chunk alone is over the budget
+    (4, 3, 100, 16, 16),          # a short prompt
+    (100000, 4, 256, 128, 128),   # many heads at the widest state
 ])
-def test_scratch_windows_stay_within_budget(BH, nc, Q, P, N):
-    """The bf16 path's scratch holds one window of chunks: at most
-    SCRATCH_BYTES (or one chunk's worth), whatever nc is, and the windows
-    cover the nc chunks evenly."""
-    win = sk.window_chunks(BH, nc, Q, P, N)
-    per_chunk = BH * (4 * Q + 8 * P * N)
-    assert 1 <= win <= nc
-    assert win * per_chunk <= max(sk.SCRATCH_BYTES, per_chunk)
-    windows = -(-nc // win)
-    # only the last window is short, by fewer chunks than there are windows
-    assert windows * win - nc < windows
-    if nc * per_chunk <= sk.SCRATCH_BYTES:
-        assert win == nc
+def test_scratch_windows_stay_within_budget(monkeypatch, BH, nc, Q, P, N):
+    """The bf16 path's scratch no longer grows with the chunks (the chained
+    pass has no windows): two f32 (P, N) state slots and a flag for each
+    (batch, head) and one ticket counter, BH * (2 N P 4 + 4) + 4 bytes
+    whatever nc is; the meta path allocates exactly that."""
+    want = BH * (2 * N * P * 4 + 4) + 4
+    assert sk.FLAG_BYTES == 4 and sk.scratch_bytes(BH, P, N) == want
+    seen = []
+
+    def spy(*args):
+        seen.append(real(*args))
+        return seen[-1]
+
+    real = sk.scratch
+    monkeypatch.setattr(sk, "scratch", spy)
+    S = nc * Q
+    meta = dict(device="meta")
+    x = torch.empty((1, S, BH, P), dtype=torch.bfloat16, **meta)
+    Bm = torch.empty((1, S, 1, N), dtype=torch.bfloat16, **meta)
+    dt = torch.empty((1, S, BH), **meta)
+    A = torch.empty((BH,), **meta)
+    y, hT = sk.ssd_grouped(x, dt, A, Bm, Bm, chunk=Q)
+    assert y.shape == x.shape and hT.shape == (1, BH, N, P)
+    (slots, flags), = seen
+    assert slots.device.type == flags.device.type == "meta"
+    assert slots.shape == (BH, 2, P, N) and flags.shape == (BH + 1,)
+    assert (slots.numel() * slots.element_size()
+            + flags.numel() * flags.element_size()) == want
 
 
 def test_kernel_path_refuses_initial_state_and_bad_inputs():

@@ -872,10 +872,18 @@ def _serve_batch(cfg, batch_size: int, prompt: int) -> dict:
     return batch
 
 
-def _kernel_modules() -> dict:
-    from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.ssd import kernel as sk
-    return {"flash_attention": fk, "ssd": sk}
+_LAUNCHED = []
+
+
+def _launch_counter():
+    """The hand-written kernels' launches by name
+    (``telemetry.LaunchCounter``), counted from the first call on for the
+    rest of the process."""
+    if not _LAUNCHED:
+        from repro_torch import telemetry
+        _LAUNCHED.append(telemetry.LaunchCounter())
+        telemetry.observers.append(_LAUNCHED[0])
+    return _LAUNCHED[0]
 
 
 def _expected_launches(cfg) -> dict:
@@ -922,15 +930,14 @@ def serve(cfg, plain_cfg, prompt: int, moe: bool = False,
     torch.cuda.synchronize()
 
     # the main path, with the kernels' counts read around it
-    modules = _kernel_modules()
-    for m in modules.values():
-        m.launches = 0
+    counter = _launch_counter()
+    counter.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = eng.generate(batch, steps=STEPS)
     torch.cuda.synchronize()
     generate_s = time.perf_counter() - t0
-    launches = {name: m.launches for name, m in modules.items()}
+    launches = dict(counter)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if launches != _expected_launches(cfg):
         raise AssertionError(f"{cfg.name}: kernel launches {launches} in one "
@@ -1300,9 +1307,8 @@ def train_phase() -> dict:
             batch_per_device=B, fused_round=fused))
 
     state0 = cpsl(False).init_state(streams.model_generator(0, dev))
-    modules = _kernel_modules()       # this path runs no hand kernel
-    for m in modules.values():
-        m.launches = 0
+    counter = _launch_counter()       # this path runs no hand kernel
+    counter.reset()
     ckpt_root = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt_root, ignore_errors=True)
     torch.backends.cudnn.deterministic = True
@@ -1335,7 +1341,7 @@ def train_phase() -> dict:
                                  f"round's {h[0]['loss']}")
         runs[mode] = (trainer, state)
         log(f"train {mode}: " + json.dumps(out[mode]))
-    out["hand_kernel_launches"] = {n: m.launches for n, m in modules.items()}
+    out["hand_kernel_launches"] = dict(counter)
     err = _max_leaf_err(runs["looped"][1], runs["fused"][1])
     out["fused_vs_looped_max_rel_err"] = err
     if not err <= FUSED_LOOPED_TOL:
@@ -1564,9 +1570,8 @@ def fleet_phase(train: dict, smi: str) -> dict:
     xtr, ytr, xte, yte, idx = _train_data()
     v = train["cut"]
     prof, ncfg = lenet_profile(), NetworkCfg(n_devices=30)
-    modules = _kernel_modules()
-    for m in modules.values():
-        m.launches = 0
+    counter = _launch_counter()
+    counter.reset()
     torch.backends.cudnn.deterministic = True
     out = {"card": smi, "cudnn_deterministic": True}
 
@@ -1745,8 +1750,7 @@ def fleet_phase(train: dict, smi: str) -> dict:
                       "v_star": vb, "saa_means_equal": True,
                       "gibbs_mc": rounds}
     log("fleet planner: " + json.dumps(out["planner"]))
-    out["hand_kernel_launches"] = {n: m.launches
-                                   for n, m in modules.items()}
+    out["hand_kernel_launches"] = dict(counter)
     if any(out["hand_kernel_launches"].values()):
         raise AssertionError("fleet phase launched a hand kernel: "
                              + json.dumps(out["hand_kernel_launches"]))
@@ -1859,7 +1863,7 @@ def _lm_grad_check(cfg, kernel: str, impl: dict, plain: dict,
     error."""
     import torch
     from repro_torch import streams, tree
-    modules = _kernel_modules()
+    counter = _launch_counter()
     out = {}
     for dtype in ("float32", "bfloat16"):
         c = cfg.replace(dtype=dtype)
@@ -1873,13 +1877,13 @@ def _lm_grad_check(cfg, kernel: str, impl: dict, plain: dict,
             grads, routes = [], []
             for kw in (impl, plain):
                 p = tree.map(lambda t: t.detach().requires_grad_(), params)
-                before = modules[kernel].launches
+                before = counter[kernel]
                 with _moe_routes([] if kw is plain else routes,
                                  replay=routes if kw is plain else None):
                     y = apply(p, x, c.replace(**kw), pos)
                 loss = (y.float() * w).sum() / shape[1]
                 grads.append(torch.autograd.grad(loss, tree.leaves(p)))
-                launched = modules[kernel].launches - before
+                launched = counter[kernel] - before
                 if (launched > 0) != (kw is impl):
                     raise AssertionError(f"{cfg.name} {label} {dtype}: "
                                          f"{kw} launched {kernel} "
@@ -2159,7 +2163,7 @@ def lm_train_model(arch: str, smi: str) -> dict:
     # The state's fingerprint before the first step and after it shows
     # which leaves that step moved; its time after the first step is
     # taken out of that step's time.
-    modules = _kernel_modules()
+    counter = _launch_counter()
     marks, step_losses, rnd = [], [], 0
     cluster_step = cp.cluster_step
     t0 = time.perf_counter()
@@ -2185,8 +2189,7 @@ def lm_train_model(arch: str, smi: str) -> dict:
 
     cp.cluster_step = recording_step
     torch.cuda.reset_peak_memory_stats()
-    for m in modules.values():
-        m.launches = 0
+    counter.reset()
     # run_round holds the only reference to the state it starts from, so
     # that state is freed after its first step (a reference kept here
     # would hold one more copy of the params: 16.8 GB for deepseek)
@@ -2198,7 +2201,7 @@ def lm_train_model(arch: str, smi: str) -> dict:
         marks.append(time.perf_counter())       # run_round synced the loss
     wall_s = time.perf_counter() - t0
     state = held.pop()
-    launches = {n: m.launches for n, m in modules.items()}
+    launches = dict(counter)
     cp.cluster_step = cluster_step
     steps = LM_ROUNDS * LM_M
     step_ms = [1e3 * (marks[i + 1] - marks[i])
@@ -2207,7 +2210,7 @@ def lm_train_model(arch: str, smi: str) -> dict:
     step_ms[0] -= 1e3 * moved["after_s"]
     losses = [float(x) for x in step_losses]
     expect = _lm_launches_per_step(cfg, kernel, v)
-    other = [n for n in modules if n != kernel]
+    other = [n for n in counter if n != kernel]
     if launches[kernel] != steps * expect or any(launches[n]
                                                  for n in other):
         raise AssertionError(f"{arch}: launches {launches} in {steps} "
@@ -2547,9 +2550,8 @@ def sim_phase(smi: str) -> dict:
     from repro_torch.sim.fleet import SimFleetRunner
 
     prof = lenet_profile()
-    modules = _kernel_modules()
-    for m in modules.values():
-        m.launches = 0
+    counter = _launch_counter()
+    counter.reset()
     t_phase = time.perf_counter()
     out = {"card": smi}
 
@@ -2644,7 +2646,7 @@ def sim_phase(smi: str) -> dict:
     log(f"sim engine: losses {[round(x, 3) for x in losses]}, recompute "
         f"err {err:.1e}, busy {100 * eprof['busy_share']:.1f} %")
 
-    out["hand_kernel_launches"] = {n: m.launches for n, m in modules.items()}
+    out["hand_kernel_launches"] = dict(counter)
     if any(out["hand_kernel_launches"].values()):
         raise AssertionError("sim: a hand-written kernel ran: "
                              + _json.dumps(out["hand_kernel_launches"]))
@@ -2749,15 +2751,14 @@ def rt_phase(smi: str) -> dict:
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()         # earlier phases' cached blocks
     out = {"card": smi}
-    modules = _kernel_modules()
+    counter = _launch_counter()
 
     def rounds_of(records):
         return [r for r in records if r.get("kind") != "qos"]
 
     # (a) the paper's configuration
     cfg = RTConfig(device="cuda", **RT_PAPER)
-    for m in modules.values():
-        m.launches = 0
+    counter.reset()
     torch.cuda.reset_peak_memory_stats()
     orch = Orchestrator(cfg)
     with _SmiSampler() as smi_mem:
@@ -2769,7 +2770,7 @@ def rt_phase(smi: str) -> dict:
         finally:
             orch.stop()
         total_s = time.perf_counter() - t0
-    launches = {n: m.launches for n, m in modules.items()}
+    launches = dict(counter)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ref, ref_loss = loopback_reference(cfg)
     _rt_bit_equal("paper", state, ref)
@@ -2973,7 +2974,7 @@ def _launch_step(label, build, cfg, shape, kernel, expect, smi) -> dict:
     import torch
     from repro_torch.launch import hlo_analysis
     from repro_torch.launch.roofline import roofline_terms
-    mods = _kernel_modules()
+    counter = _launch_counter()
     step, args = build("meta")
     t0 = time.perf_counter()
     est, _ = hlo_analysis.analyze(step, *args)
@@ -2983,13 +2984,12 @@ def _launch_step(label, build, cfg, shape, kernel, expect, smi) -> dict:
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    for m in mods.values():
-        m.launches = 0
+    counter.reset()
     t0 = time.perf_counter()
     run, out = hlo_analysis.analyze(step, *args)
     torch.cuda.synchronize()
     counted_s = time.perf_counter() - t0
-    launches = {k: m.launches for k, m in mods.items()}
+    launches = dict(counter)
     measured_peak = torch.cuda.max_memory_allocated() - before
     del out
     times = []
@@ -3031,7 +3031,7 @@ def _launch_step(label, build, cfg, shape, kernel, expect, smi) -> dict:
         f"{100 * rec['roofline_share']:.1f} % of the step [{smi}]")
     if est.flops != run.flops or est.hbm_bytes != run.hbm_bytes:
         raise AssertionError(f"{label}: meta and card counts differ")
-    other = [k for k in mods if k != kernel]
+    other = [k for k in counter if k != kernel]
     if (dict(run.custom_calls) != {kernel: expect}
             or dict(est.custom_calls) != {kernel: expect}
             or launches[kernel] != expect

@@ -58,7 +58,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch import optim, resolve_device, streams, tree
+from repro_torch import optim, resolve_device, streams, telemetry, tree
 from repro_torch.configs.base import CPSLConfig
 from repro_torch.core import compression as cmp
 from repro_torch.core.splitting import SplitModel
@@ -84,13 +84,17 @@ def _at(t: torch.Tensor, i: int, fleet: bool) -> torch.Tensor:
 def _value_and_grad(fn, params, *rest):
     """``fn(*params, *rest) -> (scalar, aux)``; returns ``((scalar, aux),
     grads)`` with one gradient tree per tree of ``params``, like
-    ``jax.value_and_grad(fn, argnums=(0, ..), has_aux=True)``."""
+    ``jax.value_and_grad(fn, argnums=(0, ..), has_aux=True)``. The
+    backward is the span ``cpsl.server_bwd``, handed over to
+    ``cpsl.client_bwd`` where the smashed data's gradient is ready
+    (``_total_loss``)."""
     params = [tree.map(lambda t: t.detach().requires_grad_(), a)
               for a in params]
     with torch.enable_grad():
         out, aux = fn(*params, *rest)
         flat = [leaf for a in params for leaf in tree.leaves(a)]
-        grads = torch.autograd.grad(out, flat, allow_unused=True)
+        with telemetry.span("cpsl.server_bwd"):
+            grads = torch.autograd.grad(out, flat, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(flat, grads)]
     out_trees, i = [], 0
@@ -100,6 +104,12 @@ def _value_and_grad(fn, params, *rest):
         i += n
     aux = tree.map(lambda t: t.detach(), aux)
     return (out.detach(), aux), out_trees
+
+
+def _client_bwd(grad):
+    """The smashed data's gradient is ready: the rest of the backward is
+    the clients'. Returns None, so the gradient is untouched."""
+    telemetry.handover("cpsl.server_bwd", "cpsl.client_bwd")
 
 
 def to_device(a, device, dtype=None) -> Optional[torch.Tensor]:
@@ -212,18 +222,24 @@ class CPSL:
         (E,)."""
         flat = _flat(batch, fleet)
         n = int(fleet)
-        if self.ccfg.share_device_params:
-            dev0 = tree.map(lambda t: t.select(n, 0), dev)
-            if fleet:
-                smashed, aux_d = self.split.device_apply_clients(dev0, flat)
+        with telemetry.span("cpsl.client_fwd"):
+            if self.ccfg.share_device_params:
+                dev0 = tree.map(lambda t: t.select(n, 0), dev)
+                if fleet:
+                    smashed, aux_d = self.split.device_apply_clients(dev0,
+                                                                     flat)
+                else:
+                    smashed, aux_d = self.split.device_apply(dev0, flat)
             else:
-                smashed, aux_d = self.split.device_apply(dev0, flat)
-        else:
-            smashed, aux_d = self._clients(dev, batch, fleet)
-            # eq. (5): concatenate client smashed data into the server batch
-            smashed = _merge(smashed, n)
-            aux_d = aux_d.mean(-1)
-        loss, aux_s = self._server_loss(srv, smashed, flat, fleet)
+                smashed, aux_d = self._clients(dev, batch, fleet)
+                # eq. (5): concatenate client smashed data into the server
+                # batch
+                smashed = _merge(smashed, n)
+                aux_d = aux_d.mean(-1)
+        if smashed.requires_grad and telemetry.tracing():
+            smashed.register_hook(_client_bwd)
+        with telemetry.span("cpsl.server_fwd"):
+            loss, aux_s = self._server_loss(srv, smashed, flat, fleet)
         total = loss + aux_d + aux_s
         return (total.sum() if fleet else total,
                 {"loss": loss, "aux": aux_d + aux_s})
@@ -261,12 +277,14 @@ class CPSL:
         else:
             (_, metrics), (g_dev, g_srv) = _value_and_grad(
                 self._total_loss, (state["dev"], state["srv"]), batch, fleet)
-        new_dev, dev_opt = self.dev_opt.step(g_dev, state["dev_opt"],
-                                             state["dev"], state["step"],
-                                             lr_scale=lr_scale)
-        new_srv, srv_opt = self.srv_opt.step(g_srv, state["srv_opt"],
-                                             state["srv"], state["step"],
-                                             lr_scale=lr_scale)
+        with telemetry.span("cpsl.client_opt"):
+            new_dev, dev_opt = self.dev_opt.step(g_dev, state["dev_opt"],
+                                                 state["dev"], state["step"],
+                                                 lr_scale=lr_scale)
+        with telemetry.span("cpsl.server_opt"):
+            new_srv, srv_opt = self.srv_opt.step(g_srv, state["srv_opt"],
+                                                 state["srv"], state["step"],
+                                                 lr_scale=lr_scale)
         state = dict(state, dev=new_dev, dev_opt=dev_opt, srv=new_srv,
                      srv_opt=srv_opt, step=state["step"] + 1)
         return state, metrics
@@ -278,7 +296,7 @@ class CPSL:
         assert not self.ccfg.share_device_params
 
         # Phase 1 (paper step 3, eq. 4): device FP -> smashed data
-        with torch.no_grad():
+        with torch.no_grad(), telemetry.span("cpsl.client_fwd"):
             smashed, _ = self._clients(state["dev"], batch, fleet)
         smashed_flat = _merge(smashed, int(fleet))
         flat = _flat(batch, fleet)
@@ -290,14 +308,15 @@ class CPSL:
 
         # Phase 3 (eq. 7): device BP from the smashed gradient
         dev = tree.map(lambda t: t.detach().requires_grad_(), state["dev"])
-        with torch.enable_grad():
+        with torch.enable_grad(), telemetry.span("cpsl.client_bwd"):
             out, _ = self._clients(dev, batch, fleet)
             g = torch.autograd.grad(out, tree.leaves(dev),
                                     grad_outputs=g_smashed.reshape(out.shape))
         g_dev = tree.unflatten_like(dev, g)
-        new_dev, dev_opt = self.dev_opt.step(g_dev, state["dev_opt"],
-                                             state["dev"], state["step"],
-                                             lr_scale=lr_scale)
+        with telemetry.span("cpsl.client_opt"):
+            new_dev, dev_opt = self.dev_opt.step(g_dev, state["dev_opt"],
+                                                 state["dev"], state["step"],
+                                                 lr_scale=lr_scale)
         state = dict(state, dev=new_dev, dev_opt=dev_opt, srv=new_srv,
                      srv_opt=srv_opt, step=state["step"] + 1)
         return state, {"loss": loss, "aux": torch.zeros_like(loss)}
@@ -309,14 +328,16 @@ class CPSL:
         Returns ``(srv, srv_opt, smashed-data gradient, loss)``. The rt
         server (``rt.server.RTServer``) runs exactly this."""
         def srv_loss(s, sm):
-            loss, aux = self._server_loss(s, sm, flat, fleet)
+            with telemetry.span("cpsl.server_fwd"):
+                loss, aux = self._server_loss(s, sm, flat, fleet)
             total = loss + aux
             return (total.sum() if fleet else total), loss
 
         (_, loss), (g_srv, g_smashed) = _value_and_grad(
             srv_loss, (srv, smashed_flat))
-        new_srv, new_opt = self.srv_opt.step(g_srv, srv_opt, srv, step,
-                                             lr_scale=lr_scale)
+        with telemetry.span("cpsl.server_opt"):
+            new_srv, new_opt = self.srv_opt.step(g_srv, srv_opt, srv, step,
+                                                 lr_scale=lr_scale)
         return new_srv, new_opt, g_smashed, loss
 
     def cluster_step(self, state, batch, lr_scale=None):
@@ -364,6 +385,7 @@ class CPSL:
 
         return dict(state, dev=tree.map(avg, dev))
 
+    @telemetry.spanned("cpsl.fedavg")
     def fedavg(self, state, data_sizes=None, keep=None):
         """Eq. (8): weights are the per-client local data sizes |D_{m,k}|
         (uniform when ``data_sizes`` is None)."""
@@ -395,17 +417,22 @@ class CPSL:
         """batch_fn(m, l) -> batch with (K, B, ...) tensor leaves for
         cluster m, local epoch l. Clusters run sequentially (eq. 9).
         ``data_sizes``: optional (M, K) eq.-8 weights; ``keep``: the (M, K)
-        straggler table. Syncs the host once, for the round's loss."""
+        straggler table. Syncs the host once, for the round's loss. Traced,
+        the round is the root span ``cpsl.round``, each step ``cpsl.step``
+        (attrs cluster, epoch)."""
         M = n_clusters or self.ccfg.n_clusters
         losses = []
-        for m in range(M):
-            for l in range(self.ccfg.local_epochs):  # noqa: E741
-                state, mt = self.cluster_step(state, batch_fn(m, l))
-                losses.append(mt["loss"])
-            state = self.fedavg(
-                state, None if data_sizes is None else data_sizes[m],
-                None if keep is None else keep[m])
-        return state, {"loss": float(torch.stack(losses).mean())}
+        with telemetry.span("cpsl.round"):
+            for m in range(M):
+                for l in range(self.ccfg.local_epochs):  # noqa: E741
+                    with telemetry.span("cpsl.step", cluster=m, epoch=l):
+                        state, mt = self.cluster_step(state, batch_fn(m, l))
+                    losses.append(mt["loss"])
+                state = self.fedavg(
+                    state, None if data_sizes is None else data_sizes[m],
+                    None if keep is None else keep[m])
+            loss = float(torch.stack(losses).mean())
+        return state, {"loss": loss}
 
     def run_round_fused(self, state, data, idx, weights=None,
                         keep=None) -> tuple:

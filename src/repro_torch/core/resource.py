@@ -11,7 +11,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch import streams
+from repro_torch import streams, telemetry
 from repro_torch.core.channel import NetworkCfg, NetworkState, device_means, sample_network
 from repro_torch.core.latency import CutProfile, PartitionBatch, cluster_latency
 
@@ -145,6 +145,7 @@ def _round_latency_cached(v, clusters, net, ncfg, prof, B, L, cache,
     return total, xs
 
 
+@telemetry.spanned("resource.gibbs", device=False)
 def gibbs_clustering(v: int, net: NetworkState, ncfg: NetworkCfg,
                      prof: CutProfile, B: int, L: int, n_clusters: int,
                      cluster_size: int, iters: int = 1000,
@@ -167,7 +168,8 @@ def gibbs_clustering(v: int, net: NetworkState, ncfg: NetworkCfg,
     member j, Metropolis accept) by the fixed rule below — ``iters`` is
     then ``len(prop_u)``. The default ``seed`` stream is unchanged.
 
-    Returns (clusters, xs, latency[, history])."""
+    Returns (clusters, xs, latency[, history]). Traced, each call is the
+    host span ``resource.gibbs``."""
     N = len(net.f)
     rng = streams.gibbs_rng(seed)
     if draws is not None:

@@ -3,6 +3,10 @@ from __future__ import annotations
 
 import torch
 
+# the observers of kernel calls, spans and counters live with the tracer;
+# ``kernels.observers`` is the same list
+from repro_torch.telemetry import observers, record_call  # noqa: F401
+
 
 def no_grad_inputs(name: str, *tensors):
     """Raise when grad mode is on and an input requires grad: a kernel
@@ -16,14 +20,3 @@ def no_grad_inputs(name: str, *tensors):
             "Call it through its autograd.Function in kernels/*/ops.py")
 
 
-# Observers of hand-kernel calls (``launch.hlo_analysis.OpCounter`` adds
-# itself while it counts): a launch through ctypes is no aten op, so each
-# wrapper reports its kernel here, on the card and on its meta path.
-observers = []
-
-
-def record_call(name: str, operands, results):
-    """Report one kernel call (its operand and result tensors) to every
-    observer."""
-    for obs in observers:
-        obs.custom_call(name, operands, results)

@@ -7,11 +7,8 @@ then, it computes the plain version ``ref.attention_ref``. For a ``meta``
 tensor (the dry run's shape propagation) it returns a ``meta`` output of
 the kernel's shape and dtype and computes nothing. On the card and on
 meta it reports the call to ``kernels.record_call`` (the dry run's op
-counter cannot see a launch through ctypes).
-
-``launches`` counts the kernel's launches in this process; a caller that
-wants to show a run went through the kernel sets it to 0 before the run and
-reads it after.
+counter cannot see a launch through ctypes; ``telemetry.LaunchCounter``
+counts the launches).
 
 The bf16 kernels read q, k and v in 16-byte pieces (TMA, ``cp.async``), so
 a bf16 input whose base is not 16-byte aligned is refused, on the card and
@@ -35,8 +32,6 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-launches = 0
 
 
 @functools.cache
@@ -85,7 +80,6 @@ def flash_attention_flat(q, k, v, *, causal: bool = True, window: int = 0,
     (GQA: query head h reads kv head h // kv_repeat). Returns (BHq, Sq, D)
     in q's dtype. Raises for an input that requires grad in grad mode
     (``no_grad_inputs``)."""
-    global launches
     _check(q, k, v, kv_repeat)
     no_grad_inputs("flash_attention_flat", q, k, v)
     if q.device.type == "cpu":
@@ -124,6 +118,5 @@ def flash_attention_flat(q, k, v, *, causal: bool = True, window: int = 0,
     if err != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(err).decode())
-    launches += 1
     record_call("flash_attention", (q, k, v), (out,))
     return out

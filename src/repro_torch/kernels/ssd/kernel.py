@@ -15,13 +15,9 @@ a ``meta`` tensor (the dry run's shape propagation) it allocates what the
 card would (y, hT in f32 and the bf16 path's scratch) on ``meta`` and
 computes nothing. On the card and on meta it reports the call to
 ``kernels.record_call`` (the dry run's op counter cannot see a launch
-through ctypes).
-
-``launches`` counts wrapper calls that launched the kernel in this process
-(one call runs two CUDA kernels in bf16, the chained pass and the small
-kernel that first zeroes its flags; one kernel in float32); a caller that
-wants to show a run went through the kernel sets it to 0 before the run
-and reads it after.
+through ctypes; ``telemetry.LaunchCounter`` counts wrapper calls that
+launched the kernel: one call runs two CUDA kernels in bf16, the chained
+pass and the small kernel that first zeroes its flags, one in float32).
 
 The kernel's outputs have no gradient: in grad mode the wrappers refuse an
 input that requires grad (``no_grad_inputs``), and training reaches the
@@ -46,8 +42,6 @@ from repro_torch.kernels.ssd.ref import ssd_grouped_ref
 STATE_DIMS = (16, 32, 64, 128)     # the N and P the kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 FLAG_BYTES = 4                     # an int32 flag a (batch, head)
-
-launches = 0
 
 
 @functools.cache
@@ -128,7 +122,6 @@ def _check_grouped(x, dt, A, Bm, Cm):
 def _launch(x, dt, A, Bm, Cm, y, Q: int) -> torch.Tensor:
     """The kernel on model-layout tensors (y the output, any strides);
     returns hT (B, H, N, P) f32."""
-    global launches
     B_, S, H, P = x.shape
     G, N = Bm.shape[2:]
     if x.device.type not in ("cuda", "meta"):
@@ -169,7 +162,6 @@ def _launch(x, dt, A, Bm, Cm, y, Q: int) -> torch.Tensor:
     if err != 0:
         raise RuntimeError("ssd kernel launch failed: "
                            + lib.ssd_error_string(err).decode())
-    launches += 1
     record_call("ssd", (x, dt, A, Bm, Cm), (y, hT))
     return hT
 

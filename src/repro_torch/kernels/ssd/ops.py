@@ -3,11 +3,13 @@
 ``repro/kernels/ssd/ops.py``): the forward launches the kernel (K2); the
 backward recomputes through ``models.mamba2.ssd_chunked``, whose chunk
 bodies are checkpointed, so no (B, H, Q, Q) tile is stashed. No backward
-kernel: the reference's backward is plain jnp too."""
+kernel: the reference's backward is plain jnp too. Traced, each backward
+is the span ``ssd.bwd``."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.kernels.ssd.kernel import ssd_grouped
 
 
@@ -21,6 +23,7 @@ class SSD(torch.autograd.Function):
         return ssd_grouped(x, dt, A, Bm, Cm, chunk=chunk)
 
     @staticmethod
+    @telemetry.spanned("ssd.bwd")
     def backward(ctx, gy, ghT):
         from repro_torch.models.mamba2 import _broadcast_groups, ssd_chunked
         inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]

@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import telemetry
 from repro_torch.configs.base import MLACfg, MoECfg, ModelConfig
 
 Params = dict
@@ -556,6 +557,7 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).float()
 
 
+@telemetry.spanned("moe")
 def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
               no_drop: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y, aux_loss). Grouped dense dispatch, as the
@@ -564,7 +566,10 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     capacity slots through one-hot dispatch/combine einsums, a slot
     position counted in token order, then in choice order; choices past
     capacity C are dropped (``no_drop``: C = g*k, so none can be). The
-    aux loss is Switch's E * sum_e(f_e * p_e) * ``router_aux_weight``."""
+    aux loss is Switch's E * sum_e(f_e * p_e) * ``router_aux_weight``.
+    Traced, a call is the span ``moe`` with the counters ``moe.choices``
+    (B*S*k) and ``moe.kept`` (the choices given a slot; with ``no_drop``
+    all of them, counted with no device work)."""
     m: MoECfg = cfg.moe
     B, S, D = x.shape
     E, k = m.n_experts, m.top_k
@@ -581,6 +586,9 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     within = torch.cumsum(oh, dim=2) - oh                   # earlier choices
     pos = ((pos_base[:, :, None, :] + within) * oh).sum(-1)   # (n, g, k)
     keep = pos < C
+    if telemetry.tracing():
+        telemetry.count("moe.choices", T * k)
+        telemetry.count("moe.kept", T * k if no_drop else keep.sum())
     pos_oh = _one_hot(torch.where(keep, pos.long(), 0), C) \
         * keep[..., None]                                   # (n, g, k, C)
     disp = torch.einsum("ngke,ngkc->ngec", oh, pos_oh)

@@ -15,7 +15,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from repro_torch import streams
+from repro_torch import streams, telemetry
 from repro_torch.configs import registry
 from repro_torch.configs.base import LayerSpec
 from repro_torch.kernels.flash_attention import kernel as fk
@@ -32,6 +32,13 @@ F32_TOL, BF16_TOL = 2e-5, 3e-2   # tests/test_kernels.py: kernel vs oracle
 SSD_F32_TOL, SSD_BF16_TOL = 5e-5, 5e-2   # tests/test_kernels.py: SSD
 
 pytestmark = pytest.mark.requires_cuda
+
+
+@pytest.fixture
+def launched():
+    """The hand-written kernels' launches during the test, by name."""
+    with telemetry.LaunchCounter() as n:
+        yield n
 
 
 @pytest.fixture
@@ -68,18 +75,18 @@ FLAT_CASES = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("BHkv,R,Sq,Skv,D,causal,window,cap,q_offset",
                          FLAT_CASES)
-def test_flash_kernel_vs_plain(cuda, dtype, BHkv, R, Sq, Skv, D, causal,
-                               window, cap, q_offset):
+def test_flash_kernel_vs_plain(launched, cuda, dtype, BHkv, R, Sq, Skv, D,
+                               causal, window, cap, q_offset):
     gen = torch.Generator(device=cuda).manual_seed(0)
     q = _randn(gen, BHkv * R, Sq, D, dtype=dtype)
     k = _randn(gen, BHkv, Skv, D, dtype=dtype)
     v = _randn(gen, BHkv, Skv, D, dtype=dtype)
     kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_offset,
               kv_repeat=R)
-    before = fk.launches
+    before = launched["flash_attention"]
     got = fk.flash_attention_flat(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert fk.launches == before + 1
+    assert launched["flash_attention"] == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     want = attention_ref(q, k, v, **kw)
     err = (got.float() - want.float()).abs().max().item()
@@ -139,18 +146,18 @@ D192_CASES = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("BHkv,R,Sq,Skv,causal,window,cap,q_offset",
                          D192_CASES)
-def test_flash_kernel_d192_vs_plain(cuda, dtype, BHkv, R, Sq, Skv, causal,
-                                    window, cap, q_offset):
+def test_flash_kernel_d192_vs_plain(launched, cuda, dtype, BHkv, R, Sq, Skv,
+                                    causal, window, cap, q_offset):
     gen = torch.Generator(device=cuda).manual_seed(9)
     q = _randn(gen, BHkv * R, Sq, 192, dtype=dtype)
     k = _randn(gen, BHkv, Skv, 192, dtype=dtype)
     v = _randn(gen, BHkv, Skv, 192, dtype=dtype)
     kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_offset,
               kv_repeat=R)
-    before = fk.launches
+    before = launched["flash_attention"]
     got = fk.flash_attention_flat(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert fk.launches == before + 1
+    assert launched["flash_attention"] == before + 1
     want = attention_ref(q, k, v, **kw)
     err = (got.float() - want.float()).abs().max().item()
     assert err < (F32_TOL if dtype == torch.float32 else BF16_TOL)
@@ -174,7 +181,7 @@ def test_flash_kernel_bf16_query_edges(cuda, Sq, D):
 
 
 @pytest.mark.parametrize("D", [16, 32, 64, 128, 192, 256])
-def test_flash_kernel_bf16_window_softcap_ragged(cuda, D):
+def test_flash_kernel_bf16_window_softcap_ragged(launched, cuda, D):
     """Each head dim's bf16 kernel (one-warpgroup below 64, warp-specialised
     from 64) against the plain version: a window edge, softcap, q_offset
     and a ragged Sq and Skv in one call."""
@@ -184,25 +191,25 @@ def test_flash_kernel_bf16_window_softcap_ragged(cuda, D):
     v = _randn(gen, 2, 170, D, dtype=torch.bfloat16)
     kw = dict(causal=True, window=90, softcap=50.0, q_offset=20,
               kv_repeat=2)
-    before = fk.launches
+    before = launched["flash_attention"]
     got = fk.flash_attention_flat(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert fk.launches == before + 1
+    assert launched["flash_attention"] == before + 1
     want = attention_ref(q, k, v, **kw)
     assert (got.float() - want.float()).abs().max().item() < BF16_TOL
 
 
-def test_flash_kernel_refuses_misaligned_bf16(cuda):
+def test_flash_kernel_refuses_misaligned_bf16(launched, cuda):
     """A bf16 view one element past an aligned base: the TMA maps need
     16-byte aligned bases, so the wrapper raises before any launch."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     flat = _randn(gen, 1 + 2 * 64 * 64, dtype=torch.bfloat16)
     q = flat[1:].view(2, 64, 64)
     k = _randn(gen, 2, 64, 64, dtype=torch.bfloat16)
-    before = fk.launches
+    before = launched["flash_attention"]
     with pytest.raises(ValueError, match="16-byte aligned"):
         fk.flash_attention_flat(q, k, k)
-    assert fk.launches == before
+    assert launched["flash_attention"] == before
 
 
 def test_flash_kernel_rejects_unsupported_head_dim(cuda):
@@ -221,7 +228,7 @@ def test_grouped_flash_attention_vs_naive(cuda):
     assert (got - want).abs().max().item() < 1e-5
 
 
-def test_reduced_gemma2_serves_through_the_kernel(cuda):
+def test_reduced_gemma2_serves_through_the_kernel(launched, cuda):
     cfg = registry.reduce_for_smoke(registry.get("gemma2-2b"))
     cfg = cfg.replace(dtype="float32", attn_impl="pallas",
                       pattern=(LayerSpec("attn", "dense", window=8),
@@ -232,9 +239,9 @@ def test_reduced_gemma2_serves_through_the_kernel(cuda):
     eng = ServeEngine(cfg, params, cap=48, device=cuda)
     naive = ServeEngine(cfg.replace(attn_impl="naive"), params, cap=48,
                         device=cuda)
-    before = fk.launches
+    before = launched["flash_attention"]
     out = eng.generate({"tokens": toks}, steps=8)
-    assert fk.launches == before + cfg.n_layers
+    assert launched["flash_attention"] == before + cfg.n_layers
     assert torch.equal(out, naive.generate({"tokens": toks}, steps=8))
     err = (eng.prefill({"tokens": toks})[0]
            - naive.prefill({"tokens": toks})[0]).abs().max().item()
@@ -296,13 +303,14 @@ def _ssd_inputs(gen, BH, S, P, N, dtype, big_decay):
 
 
 @pytest.mark.parametrize("BH,S,P,N,chunk,dtype,big_decay", SSD_CASES)
-def test_ssd_kernel_vs_plain(cuda, BH, S, P, N, chunk, dtype, big_decay):
+def test_ssd_kernel_vs_plain(launched, cuda, BH, S, P, N, chunk, dtype,
+                             big_decay):
     gen = torch.Generator(device=cuda).manual_seed(3)
     args = _ssd_inputs(gen, BH, S, P, N, dtype, big_decay)
-    before = sk.launches
+    before = launched["ssd"]
     y, hT = sk.ssd_flat(*args, chunk=chunk)
     torch.cuda.synchronize()
-    assert sk.launches == before + 1
+    assert launched["ssd"] == before + 1
     assert y.dtype == dtype and y.shape == (BH, S, P)
     assert hT.dtype == torch.float32 and hT.shape == (BH, N, P)
     assert bool(torch.isfinite(y.float()).all() and torch.isfinite(hT).all())
@@ -349,15 +357,15 @@ GROUPED_CASES = [
 
 
 @pytest.mark.parametrize("B_,S,H,G,P,N,chunk,dtype", GROUPED_CASES)
-def test_ssd_grouped_strided_vs_plain(cuda, B_, S, H, G, P, N, chunk,
+def test_ssd_grouped_strided_vs_plain(launched, cuda, B_, S, H, G, P, N, chunk,
                                       dtype):
     gen = torch.Generator(device=cuda).manual_seed(5)
     x, dt, A, Bm, Cm = _packed_model_layout(gen, B_, S, H, G, P, N, dtype)
     assert not x.is_contiguous() and not Bm.is_contiguous()
-    before = sk.launches
+    before = launched["ssd"]
     y, hT = ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=chunk)
     torch.cuda.synchronize()
-    assert sk.launches == before + 1
+    assert launched["ssd"] == before + 1
     assert y.shape == (B_, S, H, P) and y.dtype == dtype
     assert hT.shape == (B_, H, N, P) and hT.dtype == torch.float32
     # the plain version on the broadcast, flat tensors
@@ -483,7 +491,7 @@ def _mamba_cfg():
     return registry.reduce_for_smoke(registry.get("mamba2-2.7b"))
 
 
-def test_reduced_mamba2_serves_through_the_kernel(cuda):
+def test_reduced_mamba2_serves_through_the_kernel(launched, cuda):
     cfg = _mamba_cfg().replace(dtype="float32", ssd_impl="pallas")
     params = api.init(streams.model_generator(0, cuda), cfg)
     toks = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda,
@@ -491,9 +499,9 @@ def test_reduced_mamba2_serves_through_the_kernel(cuda):
     eng = ServeEngine(cfg, params, cap=48, device=cuda)
     scan = ServeEngine(cfg.replace(ssd_impl="scan"), params, cap=48,
                        device=cuda)
-    before = sk.launches
+    before = launched["ssd"]
     out = eng.generate({"tokens": toks}, steps=8)
-    assert sk.launches == before + cfg.n_layers
+    assert launched["ssd"] == before + cfg.n_layers
     assert torch.equal(out, scan.generate({"tokens": toks}, steps=8))
     err = (eng.prefill({"tokens": toks})[0]
            - scan.prefill({"tokens": toks})[0]).abs().max().item()
@@ -515,7 +523,7 @@ def _moe_cfg(arch):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "jamba-v0.1-52b"])
-def test_reduced_moe_models_serve_through_the_kernels(cuda, arch):
+def test_reduced_moe_models_serve_through_the_kernels(launched, cuda, arch):
     """One K1 launch per attention layer and one K2 launch per Mamba layer
     in a generate; the tokens equal the naive/scan path's."""
     cfg = _moe_cfg(arch)
@@ -526,10 +534,11 @@ def test_reduced_moe_models_serve_through_the_kernels(cuda, arch):
     plain = ServeEngine(cfg.replace(attn_impl="naive", ssd_impl="scan"),
                         params, cap=48, device=cuda)
     mixers = [s.mixer for s in cfg.layer_specs()]
-    before = (fk.launches, sk.launches)
+    before = (launched["flash_attention"], launched["ssd"])
     out = eng.generate({"tokens": toks}, steps=8)
-    assert (fk.launches - before[0], sk.launches - before[1]) == (
-        mixers.count("attn"), mixers.count("mamba"))
+    assert (launched["flash_attention"] - before[0],
+            launched["ssd"] - before[1]) == (mixers.count("attn"),
+                                             mixers.count("mamba"))
     assert torch.equal(out, plain.generate({"tokens": toks}, steps=8))
     err = (eng.prefill({"tokens": toks})[0]
            - plain.prefill({"tokens": toks})[0]).abs().max().item()
@@ -549,7 +558,7 @@ def test_mamba2_kernel_forward_vs_scan(cuda):
     assert (logits - want).abs().max().item() < 0.15
 
 
-def test_qwen3_kernel_forward_vs_naive(cuda):
+def test_qwen3_kernel_forward_vs_naive(launched, cuda):
     """tests/test_kernels.py::test_model_uses_pallas_impl_end_to_end's
     qwen3-32b half: the reduced bf16 model forward through the kernel and
     through naive attention."""
@@ -558,9 +567,9 @@ def test_qwen3_kernel_forward_vs_naive(cuda):
     params = api.init(streams.model_generator(0, cuda), cfg)
     toks = torch.randint(0, cfg.vocab_size, (1, 64), device=cuda,
                          generator=streams.sampler_generator(1, cuda))
-    before = fk.launches
+    before = launched["flash_attention"]
     logits, _ = api.forward(params, {"tokens": toks}, cfg)
-    assert fk.launches == before + cfg.n_layers
+    assert launched["flash_attention"] == before + cfg.n_layers
     want, _ = api.forward(params, {"tokens": toks},
                           cfg.replace(attn_impl="naive"))
     assert (logits - want).abs().max().item() < 0.15
@@ -741,7 +750,7 @@ def test_fleet_replica_matches_solo_on_card(cuda):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, BF16_TOL)])
-def test_flash_function_grads_vs_plain(cuda, dtype, tol):
+def test_flash_function_grads_vs_plain(launched, cuda, dtype, tol):
     """K1's Function (kernel forward) against ``chunked_attention``: the
     output and dq/dk/dv (tests/test_kernels.py:72's 1e-4 in f32), GQA
     R = 2, softcap 50, a window shorter than S, q_offset > 0."""
@@ -754,10 +763,11 @@ def test_flash_function_grads_vs_plain(cuda, dtype, tol):
     outs = []
     for fn in (fa_ops.flash_attention, cm.chunked_attention):
         ins = [t.clone().requires_grad_() for t in (q, k, v)]
-        before = fk.launches
+        before = launched["flash_attention"]
         out = fn(*ins, *args)
         outs.append([out] + list(torch.autograd.grad(out, ins, g)))
-        assert (fk.launches > before) == (fn is fa_ops.flash_attention)
+        assert (launched["flash_attention"] > before) == (
+            fn is fa_ops.flash_attention)
     for a, b in zip(*outs):
         a, b = a.detach().float(), b.detach().float()
         err = float((a - b).abs().max())
@@ -765,7 +775,7 @@ def test_flash_function_grads_vs_plain(cuda, dtype, tol):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_function_grads_vs_plain(cuda, dtype):
+def test_ssd_function_grads_vs_plain(launched, cuda, dtype):
     """K2's Function (kernel forward, B and C per group) against
     ``ssd_chunked`` on the groups broadcast to heads: y, hT and dx, ddt,
     dA, dB, dC (tests/test_kernels.py's 2e-5 in f32; 5e-2 in bf16)."""
@@ -781,7 +791,7 @@ def test_ssd_function_grads_vs_plain(cuda, dtype):
     outs = []
     for kernel in (True, False):
         ins = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
-        before = sk.launches
+        before = launched["ssd"]
         if kernel:
             y, hT = ssd_ops.ssd(*ins, chunk=128)
         else:
@@ -791,7 +801,7 @@ def test_ssd_function_grads_vs_plain(cuda, dtype):
                                    chunk=128)
         outs.append([y, hT] + list(torch.autograd.grad((y, hT), ins,
                                                        (gy, gh))))
-        assert (sk.launches > before) == kernel
+        assert (launched["ssd"] > before) == kernel
     tol = 2e-5 if dtype == torch.float32 else SSD_BF16_TOL
     for a, b in zip(*outs):
         a, b = a.detach().float(), b.detach().float()
@@ -800,7 +810,7 @@ def test_ssd_function_grads_vs_plain(cuda, dtype):
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-2.7b"])
-def test_split_lm_round_on_card_matches_cpu(cuda, arch):
+def test_split_lm_round_on_card_matches_cpu(launched, cuda, arch):
     """A reduced split LM in f32, one 2 x 2 CPSL round: the card (the
     kernels, launched 2 * (K*v + layers - v) times a step with remat)
     against the CPU (their plain versions), within 1e-4 per leaf."""
@@ -824,17 +834,17 @@ def test_split_lm_round_on_card_matches_cpu(cuda, arch):
     batches = [data.cluster_batch(c, seed=batch_seed(0, 0, m, 0))
                for m, c in enumerate(clusters)]
     state = cp.init_state(streams.model_generator(0, "cpu"))
-    module = fk if arch == "gemma2-2b" else sk
+    kernel = ("flash_attention" if arch == "gemma2-2b" else "ssd")
     outs = []
     for dev in ("cpu", cuda):
-        before = module.launches
+        before = launched[kernel]
         outs.append(cp.run_round(
             tree.map(lambda t: t.to(dev), state),
             lambda m, l, d=dev: {k: to_device(a, d)
                                  for k, a in batches[m].items()}))
         if dev == cuda:
             # 2 steps of 2 * (K*v + layers - v) at K = 2, v = 1
-            assert module.launches - before == 2 * 2 * (2 + cfg.n_layers - 1)
+            assert launched[kernel] - before == 2 * 2 * (2 + cfg.n_layers - 1)
     (s_cpu, m_cpu), (s_card, m_card) = outs
     assert m_card["loss"] == pytest.approx(m_cpu["loss"], rel=1e-5)
     for a, b in zip(tree.leaves(s_cpu), tree.leaves(s_card)):
@@ -858,16 +868,17 @@ WHISPER_CASES = [(3, 1, 300, 300), (2, 2, 64, 1500), (4, 1, 5, 1500)]
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("BHkv,R,Sq,Skv", WHISPER_CASES)
-def test_flash_kernel_whisper_shapes_vs_plain(cuda, dtype, BHkv, R, Sq, Skv):
+def test_flash_kernel_whisper_shapes_vs_plain(launched, cuda, dtype, BHkv, R,
+                                              Sq, Skv):
     gen = torch.Generator(device=cuda).manual_seed(13)
     q = _randn(gen, BHkv * R, Sq, 64, dtype=dtype)
     k = _randn(gen, BHkv, Skv, 64, dtype=dtype)
     v = _randn(gen, BHkv, Skv, 64, dtype=dtype)
     kw = dict(causal=False, window=0, softcap=0.0, q_offset=0, kv_repeat=R)
-    before = fk.launches
+    before = launched["flash_attention"]
     got = fk.flash_attention_flat(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert fk.launches == before + 1
+    assert launched["flash_attention"] == before + 1
     want = attention_ref(q, k, v, **kw)
     err = (got.float() - want.float()).abs().max().item()
     # non-causal over many keys the outputs are small (~0.1): in bf16,
@@ -900,7 +911,7 @@ def test_flash_kernel_whisper_ragged_mask_probe(cuda, BHkv, R, Sq, Skv):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, BF16_TOL)])
-def test_flash_function_grads_cross_attention(cuda, dtype, tol):
+def test_flash_function_grads_cross_attention(launched, cuda, dtype, tol):
     """K1's Function on whisper's cross-attention form (non-causal, 48
     queries over 300 keys, D = 64, GQA R = 2) against
     ``chunked_attention``: the output and dq/dk/dv."""
@@ -913,10 +924,11 @@ def test_flash_function_grads_cross_attention(cuda, dtype, tol):
     outs = []
     for fn in (fa_ops.flash_attention, cm.chunked_attention):
         ins = [t.clone().requires_grad_() for t in (q, k, v)]
-        before = fk.launches
+        before = launched["flash_attention"]
         out = fn(*ins, *args)
         outs.append([out] + list(torch.autograd.grad(out, ins, g)))
-        assert (fk.launches > before) == (fn is fa_ops.flash_attention)
+        assert (launched["flash_attention"] > before) == (
+            fn is fa_ops.flash_attention)
     for a, b in zip(*outs):
         a, b = a.detach().float(), b.detach().float()
         err = float((a - b).abs().max())
@@ -930,7 +942,7 @@ def _whisper_cfg():
         dtype="float32", attn_impl="pallas", head_dim=64, enc_seq=100)
 
 
-def test_reduced_whisper_serves_through_the_kernel(cuda):
+def test_reduced_whisper_serves_through_the_kernel(launched, cuda):
     """One K1 launch per encoder layer and two per decoder layer (self
     and cross) in a generate's prefill, none in decode; the tokens equal
     the naive path's and the prefill logits are within 1e-4."""
@@ -945,15 +957,15 @@ def test_reduced_whisper_serves_through_the_kernel(cuda):
     naive = ServeEngine(cfg.replace(attn_impl="naive"), params, cap=28,
                         device=cuda)
     n_dec = cfg.n_layers - cfg.n_enc_layers
-    before = fk.launches
+    before = launched["flash_attention"]
     out = eng.generate(batch, steps=8)
-    assert fk.launches - before == cfg.n_enc_layers + 2 * n_dec
+    assert launched["flash_attention"] - before == cfg.n_enc_layers + 2 * n_dec
     assert torch.equal(out, naive.generate(batch, steps=8))
     err = (eng.prefill(batch)[0] - naive.prefill(batch)[0]).abs().max()
     assert err.item() < 1e-4
 
 
-def test_whisper_split_round_on_card_matches_cpu(cuda):
+def test_whisper_split_round_on_card_matches_cpu(launched, cuda):
     """A reduced whisper split at v = 1 in f32 with remat, one 2 x 2 CPSL
     round: the card (K1 launched K*v + (n_enc - v) + 4 * n_dec times a
     step: the encoder once, the decoder's self and cross attention twice
@@ -977,14 +989,14 @@ def test_whisper_split_round_on_card_matches_cpu(cuda):
     n_enc, n_dec = cfg.n_enc_layers, cfg.n_layers - cfg.n_enc_layers
     outs = []
     for dev in ("cpu", cuda):
-        before = fk.launches
+        before = launched["flash_attention"]
         outs.append(cp.run_round(
             tree.map(lambda t: t.to(dev), state),
             lambda m, l, d=dev: {k: to_device(a, d)
                                  for k, a in batches[m].items()}))
         if dev == cuda:
-            assert fk.launches - before == 2 * (2 * 1 + n_enc - 1
-                                                + 4 * n_dec)
+            assert launched["flash_attention"] - before == 2 * (
+                2 * 1 + n_enc - 1 + 4 * n_dec)
     (s_cpu, m_cpu), (s_card, m_card) = outs
     assert m_card["loss"] == pytest.approx(m_cpu["loss"], rel=1e-5)
     for a, b in zip(tree.leaves(s_cpu), tree.leaves(s_card)):

@@ -17,6 +17,7 @@ from repro.kernels.flash_attention import ops as jfa_ops
 from repro.kernels.flash_attention.kernel import \
     flash_attention_flat as jflash_flat
 from repro.models import common as jcm
+from repro_torch import telemetry
 from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -80,11 +81,11 @@ def test_attention_ref_vs_jax_flash_kernel(BHkv, R, Sq, Skv, D, causal,
 def test_flat_wrapper_on_cpu_is_the_plain_version():
     q, k, v = _inputs(1, (6, 40, 32), (2, 40, 32), (2, 40, 32))
     kw = dict(causal=True, window=16, softcap=50.0, q_offset=0, kv_repeat=3)
-    before = fk.launches
-    got = fk.flash_attention_flat(_torch(q), _torch(k), _torch(v), **kw)
+    with telemetry.LaunchCounter() as launched:
+        got = fk.flash_attention_flat(_torch(q), _torch(k), _torch(v), **kw)
     want = attention_ref(_torch(q), _torch(k), _torch(v), **kw)
     assert torch.equal(got, want)
-    assert fk.launches == before   # the plain version is not a launch
+    assert launched["flash_attention"] == 0   # the plain version: no launch
 
 
 @pytest.mark.parametrize("bad,exc", [
@@ -119,14 +120,15 @@ def test_flat_wrapper_refuses_a_misaligned_bf16_view(which, offset,
                            device="meta")
         t[name] = flat[off:].view(shape)
     assert t[which].storage_offset() == offset
-    before = fk.launches
-    if refused:
-        with pytest.raises(ValueError, match="16-byte aligned"):
-            fk.flash_attention_flat(t["q"], t["k"], t["v"], kv_repeat=2)
-    else:
-        out = fk.flash_attention_flat(t["q"], t["k"], t["v"], kv_repeat=2)
-        assert (out.shape, out.device.type) == (t["q"].shape, "meta")
-    assert fk.launches == before
+    with telemetry.LaunchCounter() as launched:
+        if refused:
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                fk.flash_attention_flat(t["q"], t["k"], t["v"], kv_repeat=2)
+        else:
+            out = fk.flash_attention_flat(t["q"], t["k"], t["v"],
+                                          kv_repeat=2)
+            assert (out.shape, out.device.type) == (t["q"].shape, "meta")
+    assert launched["flash_attention"] == 0
 
 
 @pytest.mark.parametrize("causal,window,cap,q_offset", [

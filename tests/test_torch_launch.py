@@ -28,7 +28,7 @@ import pytest
 import torch
 
 import _cpsl_ref
-from repro_torch import streams, tree
+from repro_torch import streams, telemetry, tree
 from repro_torch.configs import registry
 from repro_torch.configs.base import SHAPES, MeshConfig, ShapeCfg
 from repro_torch.core import partitioning as pt
@@ -307,16 +307,16 @@ def test_counter_counts_products_views_and_memory():
 def test_flash_attention_meta_path_counts_one_custom_call():
     q = torch.empty((8, 32, 64), dtype=torch.bfloat16, device="meta")
     kv = torch.empty((4, 48, 64), dtype=torch.bfloat16, device="meta")
-    before = fa_kernel.launches
-    stats, out = hlo_analysis.analyze(
-        lambda q, k, v: fa_kernel.flash_attention_flat(
-            q, k, v, causal=False, kv_repeat=2), q, kv, kv)
+    with telemetry.LaunchCounter() as launched:
+        stats, out = hlo_analysis.analyze(
+            lambda q, k, v: fa_kernel.flash_attention_flat(
+                q, k, v, causal=False, kv_repeat=2), q, kv, kv)
     assert (out.shape, out.dtype, out.device.type) == (
         q.shape, q.dtype, "meta")
     assert dict(stats.custom_calls) == {"flash_attention": 1}
     assert stats.flops == 0
     assert stats.hbm_bytes == 2 * (2 * 8 * 32 * 64 + 2 * 4 * 48 * 64)
-    assert fa_kernel.launches == before
+    assert launched["flash_attention"] == 0
     with pytest.raises(ValueError, match="head dim"):
         fa_kernel.flash_attention_flat(
             torch.empty((2, 4, 24), device="meta"),
@@ -348,9 +348,10 @@ def test_ssd_meta_path_counts_one_custom_call(dtype):
     dt = torch.empty((Bt, L, H), device="meta")
     A = torch.empty((H,), device="meta")
     Bm = torch.empty((Bt, L, G, N), dtype=dtype, device="meta")
-    before = ssd_kernel.launches
-    stats, (y, hT) = hlo_analysis.analyze(
-        lambda *a: ssd_kernel.ssd_grouped(*a, chunk=16), x, dt, A, Bm, Bm)
+    with telemetry.LaunchCounter() as launched:
+        stats, (y, hT) = hlo_analysis.analyze(
+            lambda *a: ssd_kernel.ssd_grouped(*a, chunk=16), x, dt, A, Bm,
+            Bm)
     assert (y.shape, y.dtype) == (x.shape, dtype)
     assert (hT.shape, hT.dtype) == ((Bt, H, N, P), torch.float32)
     assert dict(stats.custom_calls) == {"ssd": 1}
@@ -359,7 +360,7 @@ def test_ssd_meta_path_counts_one_custom_call(dtype):
     assert stats.hbm_bytes == (2 * x.numel() * e + 4 * dt.numel()
                                + 4 * H + 2 * Bm.numel() * e
                                + 4 * Bt * H * N * P)
-    assert ssd_kernel.launches == before
+    assert launched["ssd"] == 0
 
 
 # -- the dry run --------------------------------------------------------------

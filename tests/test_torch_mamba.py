@@ -18,10 +18,9 @@ from repro.models import api as japi
 from repro.models import mamba2 as jmb
 from repro.models import transformer as jtfm
 from repro.serving.engine import ServeEngine as JServeEngine
-from repro_torch import streams
+from repro_torch import streams, telemetry
 from repro_torch.configs import registry
 from repro_torch.convert import params_from_numpy
-from repro_torch.kernels.ssd import kernel as sk
 from repro_torch.models import api
 from repro_torch.models import mamba2 as mb
 from repro_torch.models import transformer as tfm
@@ -216,9 +215,9 @@ def test_generate_matches_reference_f32(model, impl):
     assert _err(logits, jlogits) < 1e-4
     want = np.asarray(jeng.generate({"tokens": jnp.asarray(toks, jnp.int32)},
                                     steps=steps))
-    before = sk.launches
-    got = eng.generate({"tokens": torch.from_numpy(toks)}, steps=steps)
-    assert sk.launches == before      # CPU tensors take the plain version
+    with telemetry.LaunchCounter() as launched:
+        got = eng.generate({"tokens": torch.from_numpy(toks)}, steps=steps)
+    assert launched["ssd"] == 0       # CPU tensors take the plain version
     assert got.dtype == torch.int32 and got.shape == (2, steps)
     np.testing.assert_array_equal(got.numpy(), want)
 

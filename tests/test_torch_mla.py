@@ -22,6 +22,7 @@ from repro.kernels.flash_attention.kernel import \
 from repro.models import common as jcm
 from repro_torch.configs.base import MLACfg, ModelConfig
 from repro_torch.convert import params_from_numpy
+from repro_torch import telemetry
 from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models import common as cm
@@ -95,10 +96,10 @@ def test_mla_apply_materialised(mla, impl):
     _, jcfg, cfg, jp, tp = mla
     x = _x(2, (2, S, cfg.d_model))
     want = jcm.mla_apply(jp, jnp.asarray(x), jcfg, causal=True)
-    before = fk.launches
-    got = cm.mla_apply(tp, torch.from_numpy(x), cfg.replace(attn_impl=impl),
-                       causal=True)
-    assert fk.launches == before      # CPU tensors take the plain version
+    with telemetry.LaunchCounter() as launched:
+        got = cm.mla_apply(tp, torch.from_numpy(x),
+                           cfg.replace(attn_impl=impl), causal=True)
+    assert launched["flash_attention"] == 0   # CPU: the plain version
     assert got.shape == (2, S, cfg.d_model)
     assert _err(got, want) < TOL
 

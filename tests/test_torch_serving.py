@@ -26,11 +26,10 @@ from repro.models import api as japi
 from repro.models import common as jcm
 from repro.models import transformer as jtfm
 from repro.serving.engine import ServeEngine as JServeEngine
-from repro_torch import streams
+from repro_torch import streams, telemetry
 from repro_torch.configs import registry
 from repro_torch.configs.base import LayerSpec
 from repro_torch.convert import params_from_numpy
-from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.models import api
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
@@ -201,9 +200,9 @@ def test_generate_matches_reference_f32(model):
     assert _err(logits, jlogits) < 1e-4
     want = np.asarray(jeng.generate({"tokens": jnp.asarray(toks, jnp.int32)},
                                     steps=steps))
-    before = fk.launches
-    got = eng.generate({"tokens": torch.from_numpy(toks)}, steps=steps)
-    assert fk.launches == before      # CPU tensors take the plain version
+    with telemetry.LaunchCounter() as launched:
+        got = eng.generate({"tokens": torch.from_numpy(toks)}, steps=steps)
+    assert launched["flash_attention"] == 0   # CPU: the plain version
     assert got.dtype == torch.int32 and got.shape == (2, steps)
     np.testing.assert_array_equal(got.numpy(), want)
 

@@ -22,6 +22,7 @@ from repro.models import api as japi
 from repro.models import mamba2 as jmb
 from repro_torch.configs import registry
 from repro_torch.convert import params_from_numpy
+from repro_torch import telemetry
 from repro_torch.kernels.ssd import kernel as sk
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref
@@ -90,9 +91,9 @@ def test_plain_versions_and_wrapper_match_reference(impl, BH, S, P, N, Q,
         got, want = (ref.ssd_chunked_ref(*t, chunk=Q),
                      jref.ssd_chunked_ref(*j, chunk=Q))
     else:
-        before = sk.launches
-        got = sk.ssd_flat(*t, chunk=Q)
-        assert sk.launches == before     # CPU tensors take the plain version
+        with telemetry.LaunchCounter() as launched:
+            got = sk.ssd_flat(*t, chunk=Q)
+        assert launched["ssd"] == 0      # CPU tensors take the plain version
         want = jssd_flat(*j, chunk=Q, interpret=True)
     assert got[0].dtype == t[0].dtype
     _check(got, want, tol)
@@ -165,10 +166,10 @@ def test_model_layout_grouped_strided_matches_reference(G):
                         jnp.asarray(np.repeat(Cg, R, axis=2)), 64)
     tx, tB, tC = split(torch.from_numpy(packed))
     assert not (tx.is_contiguous() or tB.is_contiguous())
-    before = sk.launches
-    got = ssd_ops.ssd(tx, torch.from_numpy(dt), torch.from_numpy(A), tB, tC,
-                      64)
-    assert sk.launches == before         # CPU tensors take the plain version
+    with telemetry.LaunchCounter() as launched:
+        got = ssd_ops.ssd(tx, torch.from_numpy(dt), torch.from_numpy(A), tB,
+                          tC, 64)
+    assert launched["ssd"] == 0          # CPU tensors take the plain version
     assert got[0].shape == (B_, S, H, P) and got[1].shape == (B_, H, N, P)
     assert _err(got[0], want[0]) < LAYOUT_TOL
     assert _err(got[1], want[1]) < LAYOUT_TOL

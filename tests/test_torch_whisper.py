@@ -22,7 +22,7 @@ from repro.kernels.flash_attention.kernel import \
 from repro.models import api as japi
 from repro.models import whisper as jwhp
 from repro.serving.engine import ServeEngine as JServeEngine
-from repro_torch import streams, tree
+from repro_torch import streams, telemetry, tree
 from repro_torch.configs import registry
 from repro_torch.convert import params_from_numpy
 from repro_torch.kernels.flash_attention import kernel as fk
@@ -292,9 +292,9 @@ def test_generate_matches_reference_f32(model):
     logits, _ = eng.prefill(_tb(batch))
     assert _err(logits, jlogits) < DECODE_TOL
     want = np.asarray(jeng.generate(_jb(batch), steps=steps))
-    before = fk.launches
-    got = eng.generate(_tb(batch), steps=steps)
-    assert fk.launches == before      # CPU tensors take the plain version
+    with telemetry.LaunchCounter() as launched:
+        got = eng.generate(_tb(batch), steps=steps)
+    assert launched["flash_attention"] == 0   # CPU: the plain version
     assert got.dtype == torch.int32 and got.shape == (2, steps)
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -367,9 +367,9 @@ def test_flash_plain_version_at_head_dim_64(Sq, Skv, causal, bf16):
     want = jflash_flat(*(jnp.asarray(a).astype(jdt) for a in (q, k, v)),
                        interpret=True, **kw)
     tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
-    before = fk.launches
-    got = fk.flash_attention_flat(tq, tk, tv, **kw)
-    assert fk.launches == before
+    with telemetry.LaunchCounter() as launched:
+        got = fk.flash_attention_flat(tq, tk, tv, **kw)
+    assert launched["flash_attention"] == 0
     assert got.dtype == tdt and _err(got, want) < (BF16_TOL if bf16
                                                    else F32_TOL)
     assert torch.equal(got, attention_ref(tq, tk, tv, **kw))

@@ -30,7 +30,11 @@ failures is caught:
      packed projection, chunk 256, bf16; at the flat per-head slice
      shape x (320, 8192, 64), B and C (320, 8192, 128); and at the model
      path's width with 8191 and 8190 tokens (chunks of 1 and 2 rows)
-     against the sequential scan, with the call's peak memory.
+     against the sequential scan, with the call's peak memory;
+   - K2's backward kernel at the shapes a mamba2-2.7b CPSL step gives it,
+     x (4, 4096, 80, 64) on the server and (2, ...) on a device, and at
+     jamba's N = 16, against ``ssd_chunked``'s gradient in f32, beside the
+     plain recompute it replaced, with each CUDA kernel's device time.
 3. serve gemma2-2b at full width (random weights from a seeded generator)
    through ``ServeEngine.generate`` with batch 4, a 5120-token prompt and 16
    greedy steps, with the kernels' launch counts read around that run;
@@ -82,7 +86,8 @@ failures is caught:
    decoder context; deepseek-v2-lite-16b with bf16 params at 14 of its
    27 layers, v = 1, one 4096-token sequence a device. Each kernel's
    launches must equal ``_lm_launches_per_step`` a step (2 * (K*v +
-   layers - v); whisper K*v + (12 - v) + 4 * 12) and the other's 0, the
+   layers - v); whisper K*v + (12 - v) + 4 * 12), K2's backward kernel
+   half K2's for mamba2, and the other's 0, the
    step losses must be finite (and fall with f32 params), every
    parameter leaf must be reached and, where some update is MOVE_ULPS
    ulp or more of its value, move in the first step, and one block of
@@ -824,6 +829,109 @@ def ssd_short_chunks() -> list:
         rows.append(row)
         del x, dt, A, Bm, Cm, y, hT, y_p, h_p
         torch.cuda.empty_cache()
+    return rows
+
+
+# K2's backward against ``ssd_chunked``'s f32 gradient, of each gradient's
+# largest value: the card tests' limits (``tests/test_torch_cuda.py``'s
+# SSD_BWD_TOL): dx, dB and dC are bf16 outputs, ddt and dA f32 sums of
+# bf16 hi + lo products
+SSD_BWD_TOL = {"dx": 6e-3, "dB": 6e-3, "dC": 6e-3, "ddt": 1e-4, "dA": 1e-4}
+
+
+def ssd_bwd_shapes() -> dict:
+    """K2's backward kernel (``kernels/ssd/bwd.py``) at the shapes a
+    mamba2-2.7b CPSL step gives it (x (4, 4096, 80, 64) on the server, (2,
+    ...) on a device, one group of N = 128, chunk 256) and at jamba's N =
+    16 (x (BATCH, MOE_PROMPT, 128, 64)), bf16: the error against
+    ``ssd_chunked``'s gradient in f32 on the same values (of each
+    gradient's largest value, held to ``SSD_BWD_TOL``; a gradient that is
+    not finite fails too), the kernel's ms beside the plain backward's
+    (the recompute through ``ssd_chunked`` in bf16 that the Function ran
+    before the kernel), the bound (every input read and every gradient
+    written once, or twice the forward's products at the peak), each CUDA
+    kernel's device ms from the profiler, and the ptxas log's registers
+    and spills. ``ms_per_step``: the 65 calls of a mamba2-2.7b cluster
+    step (2 device, 63 server)."""
+    import re
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd import bwd
+    from repro_torch.kernels.ssd.kernel import chunk_len
+    from repro_torch.models import mamba2 as mb
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    bf, chunk = torch.bfloat16, 256
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(shape, device="cuda", generator=gen)
+
+    rows = {}
+    for label, (B_, S, H, P, N) in (
+            ("server", (4, 4096, 80, 64, 128)),
+            ("device", (2, 4096, 80, 64, 128)),
+            ("jamba", (BATCH, MOE_PROMPT, 128, 64, 16))):
+        ins = (rnd(B_, S, H, P).to(bf), F.softplus(rnd(B_, S, H) - 1.0),
+               -torch.exp(rnd(H, scale=0.3)), rnd(B_, S, 1, N, scale=0.5)
+               .to(bf), rnd(B_, S, 1, N, scale=0.5).to(bf))
+        gy = rnd(B_, S, H, P).to(bf)
+        got = bwd.ssd_bwd(*ins, gy, None, chunk=chunk)
+
+        def plain(dtype, ins=ins, gy=gy, H=H):
+            leaves = [t.detach().to(dtype if t.dtype == bf
+                                    else torch.float32, copy=True)
+                      .requires_grad_() for t in ins]
+            y, _ = mb.ssd_chunked(leaves[0], leaves[1], leaves[2],
+                                  mb._broadcast_groups(leaves[3], H),
+                                  mb._broadcast_groups(leaves[4], H),
+                                  chunk=chunk)
+            return torch.autograd.grad(y, leaves, gy.to(y.dtype))
+
+        want = plain(torch.float32)
+        errs = {n: float((a.float() - b).abs().max() / b.abs().max())
+                for n, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), got,
+                                   want)}
+        del want
+        if not (all(bool(torch.isfinite(g).all()) for g in got)
+                and all(errs[n] <= SSD_BWD_TOL[n] for n in errs)):
+            raise AssertionError(f"ssd bwd {label}: error against the f32 "
+                                 f"plain gradient {errs}, limits "
+                                 f"{SSD_BWD_TOL}")
+        ms = time_ms(lambda: bwd.ssd_bwd(*ins, gy, None, chunk=chunk), 10)
+        plain_ms = time_ms(lambda: plain(bf), 2)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            bwd.ssd_bwd(*ins, gy, None, chunk=chunk)
+            torch.cuda.synchronize()
+        by_kernel = {re.search(r"ssd_bwd_\w+", e.key).group(0):
+                     e.device_time_total / 1e3
+                     for e in prof.key_averages() if "ssd_bwd_" in e.key}
+        nbytes = sum(t.numel() * t.element_size() for t in (*ins, gy, *got))
+        Q = chunk_len(S, chunk)
+        pairs, nc = Q * (Q + 1) // 2, S // Q
+        flops = 2 * (B_ * nc * 2 * pairs * N
+                     + B_ * H * nc * (2 * pairs * P + 4 * Q * N * P))
+        bound_ms = max(nbytes / 3.35e12, flops / 989e12) * 1e3
+        rows[label] = {
+            "shape": f"x ({B_},{S},{H},{P}) bf16, B = C ({B_},{S},1,{N}), "
+                     f"chunk {Q}", "rel_err_vs_f32_plain": errs, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if nbytes / 3.35e12 > flops / 989e12
+            else "flops", "roofline_pct": 100 * bound_ms / ms,
+            "kernel_ms": by_kernel,
+            "scratch_mb": bwd.scratch_bytes(B_, S, H, 1, N, P, Q) / 2**20}
+        log(f"ssd bwd {label}: " + json.dumps(rows[label]))
+        del ins, gy, got
+        torch.cuda.empty_cache()
+    rows["ms_per_step"] = 2 * rows["device"]["ms"] + 63 * rows["server"]["ms"]
+    rows["plain_ms_per_step"] = (2 * rows["device"]["plain_ms"]
+                                 + 63 * rows["server"]["plain_ms"])
+    rows["build"] = {k.split("ssd_bwd")[-1]: v for k, v in _ptxas_entries(
+        _build.build_log("ssd_bwd")).items()
+        if "ILi128ELi64E" in k or "ILi16ELi64E" in k}
+    log("ssd bwd: " + json.dumps({k: rows[k] for k in (
+        "ms_per_step", "plain_ms_per_step", "build")}))
     return rows
 
 
@@ -1806,8 +1914,9 @@ LM_GRAD_TOL = {("flash_attention", "float32"): 1e-4,
 def _lm_launches_per_step(cfg, kernel: str, v: int) -> int:
     """K1 (or K2) launches in one fused CPSL step with remat: every layer
     of the kernel's kind runs forward once and again in backward (the
-    checkpoint's recompute; the Function's backward itself is plain
-    torch), the device side once per client: 2 * (K*v + n_layers - v)
+    checkpoint's recompute; K1's Function backward is plain torch, K2's
+    launches ``ssd_bwd`` once a layer), the device side once per client:
+    2 * (K*v + n_layers - v)
     when every layer is of that kind. An enc-dec split runs its encoder
     blocks without remat (the reference's plain scan) and its decoder's
     self- and cross-attention twice: K*v + (n_enc - v) + 4 * n_dec."""
@@ -2210,12 +2319,16 @@ def lm_train_model(arch: str, smi: str) -> dict:
     step_ms[0] -= 1e3 * moved["after_s"]
     losses = [float(x) for x in step_losses]
     expect = _lm_launches_per_step(cfg, kernel, v)
-    other = [n for n in counter if n != kernel]
-    if launches[kernel] != steps * expect or any(launches[n]
-                                                 for n in other):
+    # K2's Function backward launches the backward kernel, once a layer
+    expect_bwd = expect // 2 if kernel == "ssd" else 0
+    other = [n for n in counter if n not in (kernel, "ssd_bwd")]
+    if (launches[kernel] != steps * expect
+            or launches["ssd_bwd"] != steps * expect_bwd
+            or any(launches[n] for n in other)):
         raise AssertionError(f"{arch}: launches {launches} in {steps} "
-                             f"steps; expected {expect} of {kernel} a step "
-                             f"and none of {other}")
+                             f"steps; expected {expect} of {kernel} and "
+                             f"{expect_bwd} of ssd_bwd a step and none of "
+                             f"{other}")
     # bf16 SGD can round a small update away, so a bf16-param model's
     # losses are reported, not held to fall
     falls = cfg.param_dtype != "bfloat16"
@@ -3177,6 +3290,7 @@ def _main(torch, t_start, smi, table) -> int:
     ssd_rows = ssd_shapes()
     ssd_jamba = ssd_jamba_shape()
     ssd_short = ssd_short_chunks()
+    ssd_bwd = ssd_bwd_shapes()
     gemma = gemma_serve_phase()
     mamba = mamba_serve_phase()
     moe = moe_serve_phase()
@@ -3243,7 +3357,7 @@ def _main(torch, t_start, smi, table) -> int:
         "shape": ssd_jamba["shape"], "mamba2_shape": ssd_model,
         "mamba2_flat_shape": ssd_flat_row,
         "short_chunks": ssd_short, "sweep_max_abs_err": ssd_worst,
-        "bf16_build": k2_build}]
+        "bf16_build": k2_build, "backward": ssd_bwd}]
     print(json.dumps({"moe_serve": moe}))
     print(json.dumps({"whisper_serve": whisper}))
     print(json.dumps({"train": train}))

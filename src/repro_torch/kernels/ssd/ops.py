@@ -1,15 +1,25 @@
 """SSD in the model's layout over the kernel, as a
 ``torch.autograd.Function`` (the reference's ``custom_vjp``,
-``repro/kernels/ssd/ops.py``): the forward launches the kernel (K2); the
-backward recomputes through ``models.mamba2.ssd_chunked``, whose chunk
-bodies are checkpointed, so no (B, H, Q, Q) tile is stashed. No backward
-kernel: the reference's backward is plain jnp too. Traced, each backward
-is the span ``ssd.bwd``."""
+``repro/kernels/ssd/ops.py``): the forward launches the kernel (K2).
+
+The backward takes what it can see in the saved inputs. bf16 tensors on
+the card take the backward kernel (``bwd.ssd_bwd``, ``csrc/ssd_bwd.cu``;
+the reference has none, its backward is plain jnp), and so do bf16
+tensors on ``meta``: there the wrapper allocates what the card would,
+computes nothing and reports the call, so the dry run counts what the
+card runs, as the forward's meta path does. Float32 tensors, on the card
+or the CPU, and every CPU tensor recompute through
+``models.mamba2.ssd_chunked``, whose chunk bodies are checkpointed, so no
+(B, H, Q, Q) tile is stashed: float32 is the reduced models' exact check
+(a split-LM round on the card against the CPU within 1e-4 a leaf), which
+the kernel's bf16 hi + lo products (~16 bits) would not hold. Traced,
+each backward is the span ``ssd.bwd``."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch import telemetry
+from repro_torch.kernels.ssd.bwd import ssd_bwd
 from repro_torch.kernels.ssd.kernel import ssd_grouped
 
 
@@ -25,8 +35,17 @@ class SSD(torch.autograd.Function):
     @staticmethod
     @telemetry.spanned("ssd.bwd")
     def backward(ctx, gy, ghT):
+        saved = ctx.saved_tensors      # unpacked once (remat checkpoints)
+        x = saved[0]
+        if x.device.type in ("cuda", "meta") and x.dtype == torch.bfloat16:
+            # a backward that reaches only hT: y's gradient is zero, and
+            # hT does not depend on C
+            dx, ddt, dA, dB, dC = ssd_bwd(
+                *saved, torch.zeros_like(x) if gy is None else gy, ghT,
+                chunk=ctx.chunk)
+            return dx, ddt, dA, dB, None if gy is None else dC, None
         from repro_torch.models.mamba2 import _broadcast_groups, ssd_chunked
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        inputs = [t.detach().requires_grad_() for t in saved]
         x, dt, A, Bm, Cm = inputs
         H = x.shape[2]
         with torch.enable_grad():

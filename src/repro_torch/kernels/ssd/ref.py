@@ -83,3 +83,94 @@ def ssd_grouped_ref(x, dt, A, Bm, Cm, chunk: int = 64):
                            A.repeat(B_), flat(Bh), flat(Ch), chunk=chunk)
     return (y.reshape(B_, H, S, P).permute(0, 2, 1, 3),
             h.reshape(B_, H, N, P))
+
+
+def ssd_bwd_ref(x, dt, A, Bm, Cm, gy, ghT=None, chunk: int = 64):
+    """The SSD backward as the kernel (``csrc/ssd_bwd.cu``) decomposes it,
+    in plain f32, model layout: x and gy (B, S, H, P), dt (B, S, H), A
+    (H,), Bm and Cm (B, S, G, N) per group, ghT (B, H, N, P) or None;
+    ``chunk`` is the forward's chunk (``kernel.chunk_len``'s result).
+    Returns (dx, ddt, dA, dB, dC) in f32, dB and dC summed over each
+    group's heads.
+
+    Per chunk of ``bwd.bwd_chunk`` rows (zero rows pad the last; their dt is 0,
+    so the cumsum stays at its last value): the state entering each chunk
+    h_k (h_{k+1} = T_k h_k + U_k) and the gradient of the state leaving it
+    Dh_k (Dh_{k-1} = T_k Dh_k + V_k, Dh_last = ghT), then the chunk's
+    terms through the masked scores, h_k and Dh_k, and a reverse cumsum
+    of the cumsum's gradient into ddt and dA."""
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2:]
+    # the kernel's chunk rule; imported here, not at the top, because the
+    # kernel modules import this one
+    from repro_torch.kernels.ssd.bwd import bwd_chunk
+    f32 = torch.float32
+    Qc = bwd_chunk(S, chunk)
+    nc = -(-S // Qc)
+    pad = nc * Qc - S
+
+    def heads(t, w):          # (B, S, G or H, w) -> (B, H, nc, Qc, w)
+        t = t.to(f32)
+        if t.shape[2] != H:
+            t = t.repeat_interleave(H // t.shape[2], dim=2)
+        t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+        return t.permute(0, 2, 1, 3).reshape(B_, H, nc, Qc, w)
+
+    xc, gc, Bc, Cc = heads(x, P), heads(gy, P), heads(Bm, N), heads(Cm, N)
+    dtc = heads(dt[..., None], 1)[..., 0]                 # (B, H, nc, Qc)
+    cum = torch.cumsum(dtc * A.to(f32)[:, None, None], dim=-1)
+    cl = cum[..., -1]
+    tril = torch.tril(torch.ones((Qc, Qc), dtype=torch.bool,
+                                 device=x.device))
+    diff = cum[..., :, None] - cum[..., None, :]           # cum_i - cum_j
+    L = torch.exp(torch.where(tril, diff, torch.full(
+        (), float("-inf"), dtype=f32, device=x.device)))
+    Sc = Cc @ Bc.transpose(-1, -2)                         # (.., i, j)
+    dM = gc @ xc.transpose(-1, -2)
+    dtj = dtc[..., None, :]
+    M = Sc * L * dtj
+    dS = dM * L * dtj
+    Rm = dM * Sc * L
+    f = torch.exp(cl[..., None] - cum)
+    w = f * dtc
+    e = torch.exp(cum)
+    U = torch.einsum("...jn,...j,...jp->...np", Bc, w, xc)
+    V = torch.einsum("...in,...i,...ip->...np", Cc, e, gc)
+    T = torch.exp(cl)
+    hs, Dh = [], [None] * nc
+    h = torch.zeros((B_, H, N, P), dtype=f32, device=x.device)
+    for k in range(nc):
+        hs.append(h)
+        h = T[..., k, None, None] * h + U[:, :, k]
+    d = (ghT.to(f32) if ghT is not None
+         else torch.zeros((B_, H, N, P), dtype=f32, device=x.device))
+    for k in reversed(range(nc)):
+        Dh[k] = d
+        d = T[..., k, None, None] * d + V[:, :, k]
+    hs, Dh = torch.stack(hs, dim=2), torch.stack(Dh, dim=2)
+    dT = T * (Dh * hs).sum((-2, -1))
+    xB = Bc @ Dh                                           # B_j Dh: (j, P)
+    dw = (xc * xB).sum(-1)
+    dx = M.transpose(-1, -2) @ gc + w[..., None] * xB
+    dB = dS.transpose(-1, -2) @ Cc + w[..., None] * (xc @ Dh.transpose(
+        -1, -2))
+    gh = gc @ hs.transpose(-1, -2)                         # h gy_i: (i, N)
+    dC = dS @ Bc + e[..., None] * gh
+    ddt = Rm.sum(-2) + f * dw
+    # dM M enters dcum by rows and by columns; its diagonal's two shares
+    # cancel, so both sums leave it out
+    below = torch.tril(Rm * dtj, diagonal=-1)
+    dcum = below.sum(-1) - below.sum(-2) - w * dw + e * (Cc * gh).sum(-1)
+    dcum[..., -1] += (w * dw).sum(-1) + dT
+    da = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+    ddt = ddt + A.to(f32)[:, None, None] * da
+    dA = (dtc * da).sum((0, 2, 3))
+
+    def back(t):              # (B, H, nc, Qc, w) -> (B, S, H, w)
+        return t.reshape(B_, H, nc * Qc, -1)[:, :, :S].permute(0, 2, 1, 3)
+
+    def groups(t):            # (B, S, H, w) -> (B, S, G, w)
+        return t.reshape(B_, S, G, H // G, -1).sum(3)
+
+    return (back(dx), back(ddt[..., None])[..., 0], dA, groups(back(dB)),
+            groups(back(dC)))

@@ -809,6 +809,166 @@ def test_ssd_function_grads_vs_plain(launched, cuda, dtype):
         assert err <= tol * max(1.0, float(b.abs().max())), err
 
 
+# K2's backward kernel against ssd_chunked's gradient in f32 on the same
+# bf16 values, (B, S, H, G, P, N, chunk)
+SSD_BWD_CASES = [
+    (4, 4096, 80, 1, 64, 128, 256),   # mamba2-2.7b's server batch
+    (2, 4096, 80, 1, 64, 128, 256),   # its device batch (cut v = 1)
+    (2, 2048, 128, 1, 64, 16, 256),   # jamba's N = 16
+    (2, 384, 8, 8, 64, 64, 128),      # B and C per head (G = H), Q = 128
+    (2, 512, 8, 2, 32, 32, 64),       # Q = 64
+    (1, 200, 4, 1, 128, 128, 256),    # P = 128; Q = 200, a short last tile
+    (1, 331, 6, 2, 16, 64, 256),      # odd S: Q = 1, run 64 rows together
+]
+# Of the largest value of each gradient, tighter than the Function's bf16
+# limit (5e-2, set for the plain path's bf16 results). dx, dB and dC are
+# rounded to bf16: half an ulp is up to 2^-8 = 3.9e-3 of the largest value
+# (3.4e-3 read on the H100); ddt and dA stay f32, where every f32 operand of
+# a product enters as bf16 hi + lo (~2^-16) and sums run in f32 (2.3e-5
+# read).
+SSD_BWD_TOL = {"dx": 6e-3, "dB": 6e-3, "dC": 6e-3, "ddt": 1e-4, "dA": 1e-4}
+
+
+def _ssd_bwd_inputs(gen, B_, S, H, G, P, N):
+    bf = torch.bfloat16
+    x = _randn(gen, B_, S, H, P, dtype=bf)
+    dt = F.softplus(_randn(gen, B_, S, H) - 1.0)
+    A = -torch.exp(0.3 * _randn(gen, H))
+    Bm, Cm = ((0.5 * _randn(gen, B_, S, G, N)).to(bf) for _ in range(2))
+    gy = _randn(gen, B_, S, H, P, dtype=bf)
+    gh = _randn(gen, B_, H, N, P)
+    return x, dt, A, Bm, Cm, gy, gh
+
+
+def _ssd_plain_grads(x, dt, A, Bm, Cm, gy, gh, chunk):
+    """``ssd_chunked``'s gradient in f32 on the same values, B and C
+    broadcast to heads: (dx, ddt, dA, dB, dC)."""
+    from repro_torch.models import mamba2 as mb
+    H = x.shape[2]
+    ins = [t.detach().to(torch.float32, copy=True).requires_grad_()
+           for t in (x, dt, A, Bm, Cm)]
+    y, hT = mb.ssd_chunked(ins[0], ins[1], ins[2],
+                           mb._broadcast_groups(ins[3], H),
+                           mb._broadcast_groups(ins[4], H), chunk=chunk)
+    if gh is None:
+        return torch.autograd.grad(y, ins, gy.float())
+    return torch.autograd.grad((y, hT), ins, (gy.float(), gh))
+
+
+def _rel_errs(got, want):
+    return {n: float((a.float() - b).abs().max() / b.abs().max())
+            for n, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), got, want)}
+
+
+def _within(errs):
+    return all(errs[n] <= SSD_BWD_TOL[n] for n in errs)
+
+
+@pytest.mark.parametrize("with_state", [True, False])
+@pytest.mark.parametrize("B_,S,H,G,P,N,chunk", SSD_BWD_CASES)
+def test_ssd_bwd_kernel_vs_plain(launched, cuda, B_, S, H, G, P, N, chunk,
+                                 with_state):
+    from repro_torch.kernels.ssd import bwd
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    x, dt, A, Bm, Cm, gy, gh = _ssd_bwd_inputs(gen, B_, S, H, G, P, N)
+    gh = gh if with_state else None
+    before = launched["ssd_bwd"]
+    got = bwd.ssd_bwd(x, dt, A, Bm, Cm, gy, gh, chunk=chunk)
+    torch.cuda.synchronize()
+    assert launched["ssd_bwd"] == before + 1
+    want = _ssd_plain_grads(x, dt, A, Bm, Cm, gy, gh, chunk)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+    errs = _rel_errs(got, want)
+    print("ssd_bwd", (B_, S, H, G, P, N, chunk), with_state, errs)
+    assert _within(errs), errs
+
+
+def test_ssd_bwd_large_decays_stay_finite(cuda):
+    """dt |A| = 20 a step: a chunk's cumsum spans far more than exp's
+    range, and above the diagonal the decay is never evaluated."""
+    from repro_torch.kernels.ssd import bwd
+    gen = torch.Generator(device=cuda).manual_seed(35)
+    x, dt, A, Bm, Cm, gy, gh = _ssd_bwd_inputs(gen, 1, 512, 4, 1, 64, 64)
+    dt = torch.full_like(dt, 2.0)
+    A = torch.full_like(A, -10.0)
+    got = bwd.ssd_bwd(x, dt, A, Bm, Cm, gy, gh, chunk=256)
+    assert all(bool(torch.isfinite(t.float()).all()) for t in got)
+    errs = _rel_errs(got, _ssd_plain_grads(x, dt, A, Bm, Cm, gy, gh, 256))
+    del errs["dA"]
+    assert _within(errs), errs
+    # dA: here its rows' terms cancel to ~1e-6 (finite differences of this
+    # case in f64 on the CPU), where the plain path reads ~5e-4 in f32 and
+    # f64 alike; it is held to the kernel's decomposition in f32
+    from repro_torch.kernels.ssd.ref import ssd_bwd_ref
+    dA = ssd_bwd_ref(x, dt, A, Bm, Cm, gy, gh, chunk=256)[2]
+    assert float((got[2] - dA).abs().max()) < 1e-4, (got[2], dA)
+
+
+def test_ssd_bwd_repeated_calls_bit_equal(cuda):
+    from repro_torch.kernels.ssd import bwd
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    x, dt, A, Bm, Cm, gy, gh = _ssd_bwd_inputs(gen, 2, 1024, 16, 1, 64, 128)
+    outs = [bwd.ssd_bwd(x, dt, A, Bm, Cm, gy, gh, chunk=256)
+            for _ in range(3)]
+    for o in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], o))
+
+
+def test_ssd_bwd_allocates_only_its_scratch(cuda):
+    """At mamba2-2.7b's server shape the call's peak beyond its inputs is
+    its outputs and the stated scratch (~0.53 GB), under them plus one
+    (B, H, Q, Q) f32 tile (84 MB)."""
+    from repro_torch.kernels.ssd import bwd
+    B_, S, H, G, P, N, chunk = SSD_BWD_CASES[0]
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    ins = _ssd_bwd_inputs(gen, B_, S, H, G, P, N)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    outs = bwd.ssd_bwd(*ins[:6], None, chunk=chunk)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    out_bytes = sum(t.numel() * t.element_size() for t in outs)
+    scratch = bwd.scratch_bytes(B_, S, H, G, N, P, chunk)
+    tile = B_ * H * chunk * chunk * 4
+    print("ssd_bwd memory", extra, out_bytes, scratch)
+    assert extra < out_bytes + scratch + tile
+
+
+def test_ssd_function_bf16_backward_is_the_kernel(launched, cuda,
+                                                  monkeypatch):
+    """The Function's bf16 backward on the card launches the kernel once
+    and never reaches ``ssd_chunked``; a backward that reaches only hT
+    gives C no gradient."""
+    from repro_torch.models import mamba2 as mb
+    B_, S, H, G, P, N, chunk = 2, 512, 8, 2, 64, 128, 256
+    gen = torch.Generator(device=cuda).manual_seed(34)
+    x, dt, A, Bm, Cm, gy, gh = _ssd_bwd_inputs(gen, B_, S, H, G, P, N)
+    want = _ssd_plain_grads(x, dt, A, Bm, Cm, gy, gh, chunk)
+
+    def refuse(*a, **k):
+        raise AssertionError("the bf16 backward ran ssd_chunked")
+
+    monkeypatch.setattr(mb, "ssd_chunked", refuse)
+    ins = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    y, hT = ssd_ops.ssd(*ins, chunk=chunk)
+    before = launched["ssd_bwd"]
+    got = torch.autograd.grad((y, hT), ins, (gy, gh))
+    assert launched["ssd_bwd"] == before + 1
+    assert _within(_rel_errs(got, want))
+    ins = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    _, hT = ssd_ops.ssd(*ins, chunk=chunk)
+    grads = torch.autograd.grad((hT * gh).sum(), ins, allow_unused=True)
+    assert grads[4] is None and all(g is not None for g in grads[:4])
+    # under remat (a checkpointed layer unpacks the saved inputs once)
+    ins = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    y, hT = torch.utils.checkpoint.checkpoint(
+        lambda *a: ssd_ops.ssd(*a, chunk=chunk), *ins, use_reentrant=False)
+    again = torch.autograd.grad((y, hT), ins, (gy, gh))
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
 @pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-2.7b"])
 def test_split_lm_round_on_card_matches_cpu(launched, cuda, arch):
     """A reduced split LM in f32, one 2 x 2 CPSL round: the card (the

@@ -407,6 +407,26 @@ def test_run_cell_records_every_kind(ref, reduced, tmp_path, arch):
             assert rec["custom_calls"], cell     # the kernels' meta paths
 
 
+def test_run_cell_counts_the_ssd_backward_kernel(reduced, tmp_path,
+                                                 monkeypatch):
+    """A bf16 training step of the reduced mamba2 with ``ssd_impl=pallas``
+    on ``meta``: each SSD forward has its backward as one ``ssd_bwd``
+    custom call (the reduced model has no remat), as the card launches
+    them, and nothing recomputes through ``ssd_chunked``."""
+    from repro_torch.models import mamba2 as mb
+
+    def recompute(*a, **k):
+        raise AssertionError("the bf16 backward recomputed on meta")
+
+    monkeypatch.setattr(mb, "ssd_chunked", recompute)
+    rec = dryrun.run_cell("mamba2-2.7b", "train_4k", "h100", str(tmp_path),
+                          cut=1, cluster_size=K,
+                          overrides=["ssd_impl=pallas"])
+    calls = rec["custom_calls"]
+    assert set(calls) == {"ssd", "ssd_bwd"}
+    assert calls["ssd_bwd"] == calls["ssd"] >= 1
+
+
 def test_dryrun_refuses_the_tpu_meshes(reduced, tmp_path, capsys):
     for name in ("pod1", "pod2", "tiny"):
         with pytest.raises(ValueError, match="one card has no pod"):

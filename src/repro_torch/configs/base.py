@@ -1,7 +1,9 @@
 """Model config dataclasses (the port's own copy of ``repro.configs.base``'s
 model part, ``CPSLConfig``, ``FleetConfig`` and the shape cells
 ``ShapeCfg``/``SHAPES``, the simulator's ``SimCfg``/``SimFleetCfg`` and
-``MeshConfig``).
+``MeshConfig``). The port's model configs have fields the reference's lack
+(``ModelConfig.rope`` and ``mup``, ``MoECfg.d_ff_shared``, the sub-config
+``MuPCfg``); their defaults are the reference's behaviour.
 
 A ModelConfig fully describes one architecture in the zoo. Layer stacks are
 an optional unrolled ``prologue`` followed by a periodic ``pattern``
@@ -26,6 +28,9 @@ class MoECfg:
     group_size: int = 2048          # tokens per dispatch group (GShard-style)
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
+    d_ff_shared: int = 0            # the shared MLP's width; 0 = that of
+                                    # the shared experts, d_ff_expert *
+                                    # n_shared_experts (granite: its own)
 
 
 @dataclass(frozen=True)
@@ -47,6 +52,19 @@ class SSMCfg:
     chunk_size: int = 256
     dt_min: float = 0.001
     dt_max: float = 0.1
+
+
+@dataclass(frozen=True)
+class MuPCfg:
+    """Constant multipliers of a muP-parametrised model (granite): the
+    embeddings times ``embedding_multiplier``; each sublayer's output
+    times ``residual_multiplier`` before its residual add; attention
+    scores q.k times ``attention_multiplier`` (in place of 1/sqrt(head
+    dim)); the final hidden state divided by ``logits_scaling``."""
+    embedding_multiplier: float
+    residual_multiplier: float
+    attention_multiplier: float
+    logits_scaling: float
 
 
 @dataclass(frozen=True)
@@ -79,6 +97,7 @@ class ModelConfig:
     qkv_bias: bool = False
     qk_norm: bool = False
     rope_theta: float = 1e4
+    rope: bool = True                # False: no rotary embedding (NoPE)
     attn_softcap: float = 0.0        # gemma2: 50.0
     final_softcap: float = 0.0       # gemma2: 30.0
     norm_kind: str = "rmsnorm"       # rmsnorm | layernorm
@@ -92,6 +111,7 @@ class ModelConfig:
     moe: Optional[MoECfg] = None
     mla: Optional[MLACfg] = None
     ssm: Optional[SSMCfg] = None
+    mup: Optional[MuPCfg] = None     # None: no multipliers (no op added)
     # encoder-decoder (whisper)
     encdec: bool = False
     n_enc_layers: int = 0

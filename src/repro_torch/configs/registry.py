@@ -7,6 +7,10 @@ The 4 shape cells (``configs.base.SHAPES``):
     decode_32k:  seq 32768,  global_batch 128  -> one decode step
     long_500k:   seq 524288, global_batch 1    -> one decode step; only
                  for the sub-quadratic archs (mamba2, jamba).
+
+``ARCHS`` are the reference's ten (``list_archs`` names them, so parity
+tests compare exactly what the reference has); ``PORT_ARCHS`` the port's
+own (``list_port_archs``). ``get`` finds either.
 """
 from __future__ import annotations
 
@@ -16,9 +20,10 @@ from typing import Dict
 import torch
 
 from repro_torch.configs import (chameleon_34b, deepseek_v2_lite_16b,
-                                 gemma2_2b, jamba_v01_52b, mamba2_2p7b,
-                                 phi35_moe_42b, qwen2_05b, qwen25_14b,
-                                 qwen3_32b, whisper_small)
+                                 gemma2_2b, granite_4_0_h_small,
+                                 jamba_v01_52b, mamba2_2p7b, phi35_moe_42b,
+                                 qwen2_05b, qwen25_14b, qwen3_32b,
+                                 whisper_small)
 from repro_torch.configs.base import MLACfg, ModelConfig, ShapeCfg
 
 ARCHS = {
@@ -34,15 +39,28 @@ ARCHS = {
     "qwen2-0.5b": qwen2_05b.config,
 }
 
+# architectures the port serves that the reference has no config for
+PORT_ARCHS = {
+    "granite-4.0-h-small": granite_4_0_h_small.config,
+}
+
 
 def get(name: str) -> ModelConfig:
-    if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
-    return ARCHS[name]()
+    make = ARCHS.get(name) or PORT_ARCHS.get(name)
+    if make is None:
+        raise KeyError(f"unknown arch {name!r}; known: "
+                       f"{sorted(ARCHS) + sorted(PORT_ARCHS)}")
+    return make()
 
 
 def list_archs():
+    """The reference's architectures."""
     return sorted(ARCHS)
+
+
+def list_port_archs():
+    """The port's own architectures, beside ``list_archs``."""
+    return sorted(PORT_ARCHS)
 
 
 # archs eligible for the long_500k cell (sub-quadratic sequence mixing)
@@ -94,6 +112,11 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
         kw["moe"] = dataclasses.replace(cfg.moe, n_experts=4, top_k=2,
                                         d_ff_expert=32, group_size=16,
                                         capacity_factor=8.0)
+        if cfg.moe.d_ff_shared:
+            # a shared MLP of its own width (granite): kept wider than one
+            # expert, over 8 experts
+            kw["moe"] = dataclasses.replace(kw["moe"], n_experts=8,
+                                            d_ff_shared=48)
     if cfg.mla is not None:
         kw["mla"] = MLACfg(kv_lora_rank=32, q_lora_rank=0,
                            qk_nope_head_dim=16, qk_rope_head_dim=8,

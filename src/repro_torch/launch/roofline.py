@@ -25,7 +25,10 @@ from repro_torch.launch.mesh import HBM_BW, ICI_BW, PEAK_FLOPS_BF16
 
 def active_matmul_params(cfg: ModelConfig) -> float:
     """Parameters in matmuls a token flows through (MoE: top-k + shared
-    experts only; embedding gather excluded; LM head included)."""
+    experts only, the shared MLP at ``d_ff_shared`` where the config gives
+    it; embedding gather excluded; LM head included). A mixed stack counts
+    each layer by its kind (granite: nine Mamba-2 layers and one GQA layer
+    a period, a MoE in every layer)."""
     d = cfg.d_model
     total = 0.0
     for spec in cfg.layer_specs():
@@ -52,8 +55,10 @@ def active_matmul_params(cfg: ModelConfig) -> float:
             total += (3 if cfg.glu else 2) * d * cfg.d_ff
         elif spec.ffn == "moe":
             m = cfg.moe
-            total += (3 if cfg.glu else 2) * d * m.d_ff_expert \
-                * (m.top_k + m.n_shared_experts)
+            shared = (m.d_ff_shared or m.d_ff_expert * m.n_shared_experts
+                      if m.n_shared_experts else 0)
+            total += (3 if cfg.glu else 2) * d * (m.d_ff_expert * m.top_k
+                                                  + shared)
     total += d * cfg.vocab_size        # LM head
     if cfg.encdec:
         # decoder cross-attn already counted via layer_specs? enc-dec

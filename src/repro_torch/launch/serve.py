@@ -11,6 +11,13 @@
         --batch 4 --prompt-len 4096 --steps 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
         --batch 16 --prompt-len 64 --steps 16
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-4.0-h-small --reduced --device cpu
+
+``--arch`` takes the reference's architectures and the port's own
+(``configs.registry.list_port_archs``: granite-4.0-h-small, whose 40
+layers are 64.4 GB in bfloat16; the benchmark serves 20 of them on one
+card).
 
 Attention layers run the flash-attention kernel and Mamba-2 layers the
 SSD kernel (``attn_impl``/``ssd_impl`` "pallas", the reference's name);

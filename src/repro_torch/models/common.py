@@ -339,14 +339,16 @@ def gqa_init(gen, cfg: ModelConfig) -> Params:
 
 def gqa_project_kv(p: Params, x: torch.Tensor, cfg: ModelConfig,
                    positions: torch.Tensor, *, use_rope: bool = True):
-    """Project and rope k/v for caching. x: (B, S, D) -> k, v: (B, S, G, hd)."""
+    """Project and rope k/v for caching. x: (B, S, D) -> k, v: (B, S, G, hd).
+    No rotary embedding where ``use_rope`` is False or the config has none
+    (``cfg.rope``)."""
     B, S, _ = x.shape
     hd, G = cfg.resolved_head_dim, cfg.n_kv_heads
     k = dense(p["wk"], x).reshape(B, S, G, hd)
     v = dense(p["wv"], x).reshape(B, S, G, hd)
     if cfg.qk_norm:
         k = apply_norm(p["k_norm"], k, "rmsnorm", cfg.norm_eps)
-    if use_rope:
+    if use_rope and cfg.rope:
         k = apply_rope(k, positions, cfg.rope_theta)
     return k, v
 
@@ -359,7 +361,11 @@ def gqa_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               impl: Optional[str] = None) -> torch.Tensor:
     """Self- or cross-attention. If ``kv`` is given it is the (already
     roped/projected) key/value source (cache, the prefill's own k/v or
-    encoder memory); with no ``positions`` the queries sit at 0..S-1."""
+    encoder memory); with no ``positions`` the queries sit at 0..S-1. No
+    rotary embedding where ``use_rope`` is False or ``cfg.rope`` is. A muP
+    config's ``attention_multiplier`` replaces the scores' 1/sqrt(hd): q
+    is scaled once by it times sqrt(hd), so every attention path (the
+    kernel, chunked, naive, the decode) sees the same scale."""
     B, S, _ = x.shape
     hd, H, G = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     R = H // G
@@ -369,9 +375,11 @@ def gqa_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     q = dense(p["wq"], x).reshape(B, S, G, R, hd)
     if cfg.qk_norm:
         q = apply_norm(p["q_norm"], q, "rmsnorm", cfg.norm_eps)
-    if use_rope:
+    if use_rope and cfg.rope:
         q = apply_rope(q.reshape(B, S, G * R, hd), positions,
                        cfg.rope_theta).reshape(B, S, G, R, hd)
+    if cfg.mup is not None:
+        q = q * (cfg.mup.attention_multiplier * math.sqrt(hd))
     if kv is None:
         k, v = gqa_project_kv(p, x, cfg, positions, use_rope=use_rope)
         q_offset = 0
@@ -531,7 +539,10 @@ def moe_init(gen, cfg: ModelConfig) -> Params:
         "w_down": _normal(gen, (E, dff, d), s_ff, dt),
     }
     if m.n_shared_experts:
-        p["shared"] = mlp_init(gen, d, dff * m.n_shared_experts, cfg)
+        # the shared MLP at its own width where the config gives one; its
+        # params carry the width to moe_apply and moe_apply_naive
+        p["shared"] = mlp_init(
+            gen, d, m.d_ff_shared or dff * m.n_shared_experts, cfg)
     return p
 
 
@@ -649,10 +660,19 @@ def embed_apply(p: Params, tokens: torch.Tensor,
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
+    if cfg.mup is not None:
+        x = x * cfg.mup.embedding_multiplier
     return x
 
 
+def _logits_scaled(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The final hidden state as the head reads it: divided by a muP
+    config's ``logits_scaling`` (16 is exact in bf16)."""
+    return x if cfg.mup is None else x / cfg.mup.logits_scaling
+
+
 def logits_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = _logits_scaled(x, cfg)
     if cfg.tie_embeddings:
         logits = x @ p["tok"].to(x.dtype).T
     else:
@@ -676,6 +696,7 @@ def lm_head_loss(head_w: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
     token chunks along the sequence with a hand-written backward
     (``_FusedCE``), so peak memory is one chunk's logits, never the full
     (tokens, vocab) f32 logits."""
+    x = _logits_scaled(x, cfg)
     D = x.shape[-1]
     B, S = tuple(labels.shape[:2]) if labels.dim() == 2 else \
         (1, labels.shape[0])

@@ -10,6 +10,9 @@ Three implementations:
                   checkpointed under autograd
   - ``pallas``:   the hand-written CUDA kernel (``kernels/ssd``); the name
                   is the reference's, so one config drives both packages
+
+Traced, each call of the mixer (``mamba_apply``, ``mamba_decode_step``) is
+the span ``mamba``.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import telemetry
 from repro_torch.configs.base import ModelConfig, SSMCfg
 from repro_torch.models.common import (Params, _normal, apply_norm, dense,
                                        dense_init, norm_init, pdtype)
@@ -211,6 +215,7 @@ def _dt_A(dtr, p: Params):
     return dt, -torch.exp(p["A_log"].float())
 
 
+@telemetry.spanned("mamba")
 def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 return_state: bool = False):
     """Full-sequence mamba2 mixer. x: (B,S,D). With ``return_state`` also
@@ -255,6 +260,7 @@ def mamba_init_cache(cfg: ModelConfig, batch: int, dtype, device="cpu",
                                dtype=torch.float32, device=device)}
 
 
+@telemetry.spanned("mamba")
 def mamba_decode_step(p: Params, x: torch.Tensor, cache: dict,
                       cfg: ModelConfig):
     """x: (B,1,D) -> (y (B,1,D), cache). Writes the new conv window and SSM

@@ -11,6 +11,12 @@ new k/v (an MLA layer its latent c_kv and k_rope), a Mamba layer its conv
 window and SSM state, so a step moves no cache bytes and a layer's view of
 the stacked cache stays current. MoE layers return the router's aux loss,
 which ``_stack_forward`` sums.
+
+A muP config (``cfg.mup``, granite) scales each sublayer's output by its
+residual multiplier before the residual add. Traced, each attention
+mixer call (GQA or MLA; in the training forward, the prefill and the
+decode) is the span ``attn``; a Mamba mixer's is ``mamba``
+(``models/mamba2.py``).
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ from typing import Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import tree
+from repro_torch import telemetry, tree
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import common as cm
 from repro_torch.models import mamba2 as mb
@@ -61,6 +67,14 @@ def block_init(gen, cfg: ModelConfig, spec: LayerSpec) -> Params:
     return p
 
 
+def _residual(x, a, cfg: ModelConfig):
+    """x + a, the sublayer output ``a`` first scaled by a muP config's
+    residual multiplier."""
+    if cfg.mup is not None:
+        a = a * cfg.mup.residual_multiplier
+    return x + a
+
+
 def _ffn(p: Params, x, cfg: ModelConfig, spec: LayerSpec,
          no_drop: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """The FFN sublayer with its residual. Returns (x, aux): a MoE layer's
@@ -76,18 +90,19 @@ def _ffn(p: Params, x, cfg: ModelConfig, spec: LayerSpec,
         if cfg.post_norm:
             f = cm.apply_norm(p["mlp_post_norm"], f, cfg.norm_kind,
                               cfg.norm_eps)
-        x = x + f
+        x = _residual(x, f, cfg)
     return x, aux
 
 
 def _mixer(p: Params, x, cfg: ModelConfig, spec: LayerSpec, positions):
-    if spec.mixer == "attn":
+    if spec.mixer != "attn":
+        return mb.mamba_apply(p["mamba"], x, cfg)
+    with telemetry.span("attn"):
         if cfg.attn_kind == "mla":
             return cm.mla_apply(p["attn"], x, cfg, causal=True,
                                 positions=positions)
         return cm.gqa_apply(p["attn"], x, cfg, causal=True,
                             window=spec.window, positions=positions)
-    return mb.mamba_apply(p["mamba"], x, cfg)
 
 
 def block_apply(p: Params, x, cfg: ModelConfig, spec: LayerSpec,
@@ -97,7 +112,7 @@ def block_apply(p: Params, x, cfg: ModelConfig, spec: LayerSpec,
     a = _mixer(p, h, cfg, spec, positions)
     if cfg.post_norm:
         a = cm.apply_norm(p["post_norm"], a, cfg.norm_kind, cfg.norm_eps)
-    return _ffn(p, x + a, cfg, spec)
+    return _ffn(p, _residual(x, a, cfg), cfg, spec)
 
 
 # --------------------------------------------------------------------------
@@ -135,41 +150,68 @@ def init_cache(cfg: ModelConfig, batch: int, cap: int, device="cpu"):
     return {"prologue": pro, "stack": stack}
 
 
-def block_decode(p: Params, x, cache, cfg: ModelConfig, spec: LayerSpec,
-                 pos: int) -> Tuple[torch.Tensor, dict]:
-    """x: (B,1,D); pos: index of the new token. Writes its k/v (its latent
-    for MLA, which then attends in the latent space: absorbed; for a Mamba
-    layer its conv window and SSM state) into ``cache`` in place and
-    returns (x, cache). A MoE FFN runs with ``no_drop``."""
-    h = cm.apply_norm(p["pre_norm"], x, cfg.norm_kind, cfg.norm_eps)
-    if spec.mixer == "attn":
-        cap = next(iter(cache.values())).shape[1]
-        if not 0 <= pos < cap:
-            raise IndexError(f"decode position {pos} outside cache of {cap}")
-        positions = torch.full((1,), pos, device=x.device)
-    if spec.mixer == "attn" and cfg.attn_kind == "mla":
+def _attn_decode(p: Params, h, cache, cfg: ModelConfig, spec: LayerSpec,
+                 pos: int):
+    """An attention layer's decode: writes the new token's k/v (its latent
+    for MLA, which then attends in the latent space: absorbed) into
+    ``cache`` in place and attends over the cache."""
+    cap = next(iter(cache.values())).shape[1]
+    if not 0 <= pos < cap:
+        raise IndexError(f"decode position {pos} outside cache of {cap}")
+    positions = torch.full((1,), pos, device=h.device)
+    if cfg.attn_kind == "mla":
         ckv_new, kr_new = cm.mla_project_latent(p["attn"], h, cfg, positions)
         cache["ckv"][:, pos:pos + 1] = ckv_new.to(cache["ckv"].dtype)
         cache["kr"][:, pos:pos + 1] = kr_new.to(cache["kr"].dtype)
-        a = cm.mla_apply(p["attn"], h, cfg, causal=False,
-                         positions=positions,
-                         latent=(cache["ckv"], cache["kr"]),
-                         kv_valid_len=pos + 1, absorbed=True)
-    elif spec.mixer == "attn":
-        k_new, v_new = cm.gqa_project_kv(p["attn"], h, cfg, positions)
-        cache["k"][:, pos:pos + 1] = k_new.to(cache["k"].dtype)
-        cache["v"][:, pos:pos + 1] = v_new.to(cache["v"].dtype)
-        # window masking for local layers works through kv_valid_len + the
-        # window term using absolute positions
-        a = cm.gqa_apply(p["attn"], h, cfg, causal=False, window=spec.window,
-                         positions=positions, kv=(cache["k"], cache["v"]),
-                         kv_valid_len=pos + 1)
+        return cm.mla_apply(p["attn"], h, cfg, causal=False,
+                            positions=positions,
+                            latent=(cache["ckv"], cache["kr"]),
+                            kv_valid_len=pos + 1, absorbed=True)
+    k_new, v_new = cm.gqa_project_kv(p["attn"], h, cfg, positions)
+    cache["k"][:, pos:pos + 1] = k_new.to(cache["k"].dtype)
+    cache["v"][:, pos:pos + 1] = v_new.to(cache["v"].dtype)
+    # window masking for local layers works through kv_valid_len + the
+    # window term using absolute positions
+    return cm.gqa_apply(p["attn"], h, cfg, causal=False, window=spec.window,
+                        positions=positions, kv=(cache["k"], cache["v"]),
+                        kv_valid_len=pos + 1)
+
+
+def block_decode(p: Params, x, cache, cfg: ModelConfig, spec: LayerSpec,
+                 pos: int) -> Tuple[torch.Tensor, dict]:
+    """x: (B,1,D); pos: index of the new token. Writes its k/v (its latent
+    for MLA; for a Mamba layer its conv window and SSM state) into
+    ``cache`` in place and returns (x, cache). A MoE FFN runs with
+    ``no_drop``."""
+    h = cm.apply_norm(p["pre_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    if spec.mixer == "attn":
+        with telemetry.span("attn"):
+            a = _attn_decode(p, h, cache, cfg, spec, pos)
     else:
         a, cache = mb.mamba_decode_step(p["mamba"], h, cache, cfg)
     if cfg.post_norm:
         a = cm.apply_norm(p["post_norm"], a, cfg.norm_kind, cfg.norm_eps)
-    x, _ = _ffn(p, x + a, cfg, spec, no_drop=True)
+    x, _ = _ffn(p, _residual(x, a, cfg), cfg, spec, no_drop=True)
     return x, cache
+
+
+def _attn_prefill(p: Params, h, cache, cfg: ModelConfig, spec: LayerSpec,
+                  positions):
+    """An attention layer's prefill: writes the prompt's k/v (the MLA
+    latent) into ``cache`` and attends with queries at 0..S-1 over the k/v
+    just projected, not projected again (the reference leaves the
+    duplicate to XLA's CSE)."""
+    S = h.shape[1]
+    if cfg.attn_kind == "mla":
+        ckv, kr = cm.mla_project_latent(p["attn"], h, cfg, positions)
+        cache["ckv"][:, :S] = ckv.to(cache["ckv"].dtype)
+        cache["kr"][:, :S] = kr.to(cache["kr"].dtype)
+        return cm.mla_apply(p["attn"], h, cfg, causal=True, latent=(ckv, kr))
+    k, v = cm.gqa_project_kv(p["attn"], h, cfg, positions)
+    cache["k"][:, :S] = k.to(cache["k"].dtype)
+    cache["v"][:, :S] = v.to(cache["v"].dtype)
+    return cm.gqa_apply(p["attn"], h, cfg, causal=True, window=spec.window,
+                        kv=(k, v))
 
 
 def block_prefill(p: Params, x, cfg: ModelConfig, spec: LayerSpec,
@@ -186,21 +228,9 @@ def block_prefill(p: Params, x, cfg: ModelConfig, spec: LayerSpec,
     h = cm.apply_norm(p["pre_norm"], x, cfg.norm_kind, cfg.norm_eps)
     if cache is None:
         cache = layer_cache_init(cfg, spec, B, cap, x.device)
-    if spec.mixer == "attn" and cfg.attn_kind == "mla":
-        ckv, kr = cm.mla_project_latent(p["attn"], h, cfg, positions)
-        cache["ckv"][:, :S] = ckv.to(cache["ckv"].dtype)
-        cache["kr"][:, :S] = kr.to(cache["kr"].dtype)
-        # the latent just projected, not projected again (the reference
-        # leaves the duplicate to XLA's CSE); queries at 0..S-1
-        a = cm.mla_apply(p["attn"], h, cfg, causal=True, latent=(ckv, kr))
-    elif spec.mixer == "attn":
-        k, v = cm.gqa_project_kv(p["attn"], h, cfg, positions)
-        cache["k"][:, :S] = k.to(cache["k"].dtype)
-        cache["v"][:, :S] = v.to(cache["v"].dtype)
-        # k/v just projected, not projected again (the reference leaves
-        # the duplicate to XLA's CSE); queries at 0..S-1
-        a = cm.gqa_apply(p["attn"], h, cfg, causal=True, window=spec.window,
-                         kv=(k, v))
+    if spec.mixer == "attn":
+        with telemetry.span("attn"):
+            a = _attn_prefill(p, h, cache, cfg, spec, positions)
     else:
         a, (conv_state, hT) = mb.mamba_apply(p["mamba"], h, cfg,
                                              return_state=True)
@@ -209,7 +239,7 @@ def block_prefill(p: Params, x, cfg: ModelConfig, spec: LayerSpec,
         cache["ssm"].copy_(hT)
     if cfg.post_norm:
         a = cm.apply_norm(p["post_norm"], a, cfg.norm_kind, cfg.norm_eps)
-    x, aux = _ffn(p, x + a, cfg, spec, no_drop=B * S <= 4096)
+    x, aux = _ffn(p, _residual(x, a, cfg), cfg, spec, no_drop=B * S <= 4096)
     return x, aux, cache
 
 

@@ -305,12 +305,15 @@ def test_generate_spans_leave_the_tokens_equal(rec):
     assert [s.attrs for s in top if s.name == "serve.decode"] == [
         {"pos": 16 + i} for i in range(steps - 1)]
     n_moe = sum(spec.ffn == "moe" for spec in cfg.layer_specs())
+    # each layer's mixer span (``attn``), then its MoE's
+    layers = [name for spec in cfg.layer_specs()
+              for name in ("attn", "moe")[:1 + (spec.ffn == "moe")]]
     for s in top:
         inner = _children(spans, s)
         if s.name == "serve.sample":
             assert not inner
         else:
-            assert [c.name for c in inner] == ["moe"] * n_moe
+            assert [c.name for c in inner] == layers
     # no_drop at these sizes: every choice kept
     B, S, k = 2, 16, cfg.moe.top_k
     want = n_moe * k * (B * S + B * (steps - 1))

@@ -25,8 +25,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import telemetry
 from repro_torch.configs.base import ModelConfig, SSMCfg
-from repro_torch.models.common import (Params, _normal, apply_norm, dense,
-                                       dense_init, norm_init, pdtype)
+from repro_torch.kernels.gated_norm.ref import gated_norm_ref
+from repro_torch.models.common import (Params, _normal, dense, dense_init,
+                                       norm_init, pdtype)
 
 
 # --------------------------------------------------------------------------
@@ -215,6 +216,19 @@ def _dt_A(dtr, p: Params):
     return dt, -torch.exp(p["A_log"].float())
 
 
+def gated_norm(y, x, z, p: Params, cfg: ModelConfig):
+    """The mixer's output stage, rmsnorm((y + D x) silu(z)) scale: y, x
+    (..., H, P) per head, z and the result (..., d_inner). Through the
+    hand-written kernel where the config takes the mixer's kernels
+    (``ssd_impl`` "pallas"; for CPU tensors that path computes the plain
+    version), else the plain expression."""
+    if cfg.ssd_impl == "pallas":
+        from repro_torch.kernels.gated_norm import ops as gn_ops
+        return gn_ops.gated_norm(y, x, z, p["D"], p["norm"]["scale"],
+                                 cfg.norm_eps)
+    return gated_norm_ref(y, x, z, p["D"], p["norm"]["scale"], cfg.norm_eps)
+
+
 @telemetry.spanned("mamba")
 def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 return_state: bool = False):
@@ -238,9 +252,7 @@ def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     gshape = (B_, S, s.ngroups, s.d_state)
     y, hT = ssd(xh, dt, A, B_r.reshape(gshape), C_r.reshape(gshape),
                 impl=cfg.ssd_impl, chunk=s.chunk_size)
-    y = y + xh * p["D"].to(y.dtype)[:, None]
-    y = y.reshape(B_, S, d_inner)
-    y = apply_norm(p["norm"], y * F.silu(z), "rmsnorm", cfg.norm_eps)
+    y = gated_norm(y, xh, z, p, cfg)
     out = dense(p["out_proj"], y)
     if return_state:
         # the pre-conv, pre-SiLU window of the last d_conv - 1 positions
@@ -283,9 +295,9 @@ def mamba_decode_step(p: Params, x: torch.Tensor, cache: dict,
         B_, s.ngroups, R, s.d_state).reshape(B_, H, s.d_state)
     dt, A = _dt_A(dtr, p)
     y, h_new = ssd_decode_step(cache["ssm"], xh, dt, A, Bh, Ch)
-    y = y + xh * p["D"].to(y.dtype)[:, None]
-    y = y.reshape(B_, d_inner)
-    y = apply_norm(p["norm"], y * F.silu(z), "rmsnorm", cfg.norm_eps)
+    # the conv step's einsum hands its output over column-major; the
+    # stage's kernel reads rows
+    y = gated_norm(y, xh.contiguous(), z, p, cfg)
     out = dense(p["out_proj"], y)[:, None, :]
     cache["conv"].copy_(conv_new)
     cache["ssm"].copy_(h_new)

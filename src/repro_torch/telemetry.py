@@ -283,7 +283,8 @@ class LaunchCounter(dict):
     manager, or added and removed by the caller."""
 
     def __init__(self):
-        super().__init__(flash_attention=0, ssd=0, ssd_bwd=0)
+        super().__init__(flash_attention=0, ssd=0, ssd_bwd=0, gated_norm=0,
+                         gated_norm_bwd=0)
 
     def custom_call(self, name, operands, results):
         if operands and operands[0].device.type != "meta":

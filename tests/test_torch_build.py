@@ -14,15 +14,18 @@ def _copy_csrc(tmp_path, monkeypatch):
 
 
 def test_every_source_and_header_is_in_the_tree():
-    assert _build.sources() == ["flash_attention", "ssd", "ssd_bwd"]
+    assert _build.sources() == ["flash_attention", "gated_norm", "ssd",
+                                "ssd_bwd"]
     headers = sorted(p.name for p in _build.CSRC.glob("*.cuh"))
     assert headers == ["mma.cuh", "tma.cuh"]
     for name in _build.sources():
         text = (_build.CSRC / f"{name}.cu").read_text()
-        # every kernel shares the wgmma helpers; the two forwards also the
-        # TMA map encoder (the SSD backward loads by cp.async)
-        assert '#include "mma.cuh"' in text
-        assert ('#include "tma.cuh"' in text) == (name != "ssd_bwd")
+        # every kernel on the tensor cores shares the wgmma helpers; the
+        # two forwards also the TMA map encoder (the SSD backward loads by
+        # cp.async); the gated norm uses neither (plain 16-byte loads)
+        assert ('#include "mma.cuh"' in text) == (name != "gated_norm")
+        assert ('#include "tma.cuh"' in text) == (name in ("flash_attention",
+                                                         "ssd"))
 
 
 def test_editing_a_shared_header_changes_every_target(tmp_path, monkeypatch):

@@ -1259,3 +1259,171 @@ def test_sim_engine_card_plans(cuda):
         assert eng.device.type == torch.device(dev).type
         traces.append(jsonable(eng.run()[1]))
     assert traces[0] == traces[1] and len(traces[0]) == 3
+
+
+# --------------------------------------------------------------------------
+# the Mamba-2 mixer's gated output stage (kernels/gated_norm)
+# --------------------------------------------------------------------------
+
+# (rows, W, H): two training sequences of 4096 at mamba2-2.7b's and
+# granite's widths, the decode's 4 and 16 rows, ragged row counts
+GATED_CASES = [(8192, 5120, 80), (8192, 8192, 128), (4, 5120, 80),
+               (16, 8192, 128), (1000, 5120, 80), (37, 128, 8)]
+# Against the f64 gradient of the plain version on the same values. An
+# output in bf16 is one rounding of the kernel's f32 value: at most half an
+# ulp, 2^-8 of the value; one ulp of the largest output, 2^-7 of it, leaves
+# room for the f32 arithmetic (the plain bf16 path rounds three times:
+# after the skip, after the gate, at the output). In f32 the same
+# arithmetic in another order, with rsqrtf and __expf (a few ulps each).
+GATED_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -7}
+# dD and dscale are f32 sums over the rows in another order: within 1e-5
+# of the sum of their terms' magnitudes
+GATED_SUM_TOL = 1e-5
+
+
+def _gated_inputs(gen, rows, W, H, dtype):
+    """y and x per head (rows, H, P), z (rows, W), as the mixer has them
+    (x and z column slices of the conv's and in_proj's rows), D and scale
+    f32, dout (rows, W)."""
+    y = _randn(gen, rows, H, W // H, dtype=dtype)
+    x = _randn(gen, rows, W + 256, dtype=dtype)[:, :W].reshape(y.shape)
+    z = _randn(gen, rows, 2 * W + 256 + H, dtype=dtype)[:, :W]
+    D = 1.0 + 0.5 * _randn(gen, H)
+    scale = 1.0 + 0.1 * _randn(gen, W)
+    return y, x, z, D, scale, _randn(gen, rows, W, dtype=dtype)
+
+
+def _gated_f64(y, x, z, D, scale, dout):
+    """The plain version's output and its gradients in f64."""
+    from repro_torch.kernels.gated_norm.ref import gated_norm_ref
+    leaves = [t.detach().double().requires_grad_()
+              for t in (y, x, z, D.to(y.dtype), scale)]
+    out = gated_norm_ref(*leaves, 1e-5)
+    return (out.detach(),) + torch.autograd.grad(out, leaves, dout.double())
+
+
+def _gated_rel(a, b):
+    return float((a.double() - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,W,H", GATED_CASES)
+def test_gated_norm_kernel_vs_plain(launched, cuda, rows, W, H, dtype):
+    from repro_torch.kernels.gated_norm import kernel as gk
+    from repro_torch.kernels.gated_norm.ref import gated_norm_ref
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    y, x, z, D, scale, dout = _gated_inputs(gen, rows, W, H, dtype)
+    before = dict(launched)
+    out, rstd = gk.gated_norm_fwd(y, x, z, D, scale, 1e-5)
+    grads = gk.gated_norm_bwd(y, x, z, D, scale, rstd, dout)
+    torch.cuda.synchronize()
+    assert launched["gated_norm"] == before["gated_norm"] + 1
+    assert launched["gated_norm_bwd"] == before["gated_norm_bwd"] + 1
+    want = _gated_f64(y, x, z, D, scale, dout)
+    errs = {"out": _gated_rel(out, want[0])}
+    for name, a, b in zip(("dy", "dx", "dz"), grads[:3], want[1:4]):
+        assert a.shape == b.shape and a.dtype == dtype
+        errs[name] = _gated_rel(a, b)
+    print("gated_norm", (rows, W, H, dtype), errs)
+    assert all(e <= GATED_TOL[dtype] for e in errs.values()), errs
+    if dtype == torch.bfloat16:
+        # one rounding where the plain bf16 path rounds three times
+        plain = gated_norm_ref(y, x, z, D, scale, 1e-5)
+        assert errs["out"] <= _gated_rel(plain, want[0])
+    # the sums, each within GATED_SUM_TOL of its terms' magnitudes
+    x64 = x.double()
+    mag_D = (want[1] * x64).abs().sum((0, 2))
+    u = y.double() + D.to(dtype).double()[:, None] * x64
+    n = u.reshape(rows, W) * F.silu(z.double()) * rstd.double()[:, None]
+    mag_s = (dout.double() * n).abs().sum(0)
+    for a, b, mag in ((grads[3], want[4], mag_D), (grads[4], want[5], mag_s)):
+        assert a.dtype == torch.float32
+        assert bool(((a.double() - b).abs() <= GATED_SUM_TOL * mag
+                     + 1e-30).all())
+
+
+def test_gated_norm_repeated_calls_bit_equal(cuda):
+    from repro_torch.kernels.gated_norm import kernel as gk
+    gen = torch.Generator(device=cuda).manual_seed(42)
+    y, x, z, D, scale, dout = _gated_inputs(gen, 8192, 5120, 80,
+                                            torch.bfloat16)
+    outs = []
+    for _ in range(3):
+        out, rstd = gk.gated_norm_fwd(y, x, z, D, scale, 1e-5)
+        outs.append((out, rstd) + gk.gated_norm_bwd(y, x, z, D, scale, rstd,
+                                                    dout))
+    for o in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], o))
+
+
+def test_gated_norm_refuses_misaligned_operands(launched, cuda):
+    from repro_torch.kernels.gated_norm import kernel as gk
+    gen = torch.Generator(device=cuda).manual_seed(43)
+    y, x, z, D, scale, _ = _gated_inputs(gen, 8, 128, 8, torch.bfloat16)
+    wide = _randn(gen, 8, 512, dtype=torch.bfloat16)
+    before = launched["gated_norm"]
+    for bad in (wide[:, 1:129], wide[:, ::2][:, :128]):
+        bad = bad.reshape(y.shape)
+        with pytest.raises(ValueError, match="16-byte"):
+            gk.gated_norm_fwd(y, bad, z, D, scale, 1e-5)
+    assert launched["gated_norm"] == before
+
+
+def test_reduced_mamba2_training_step_takes_the_gated_norm_kernel(
+        launched, cuda):
+    """A bf16 step of the reduced mamba2 with remat: the stage's kernel
+    twice a Mamba layer (the forward and its recompute), its backward
+    once, and every parameter of the stage gets a finite gradient."""
+    cfg = _mamba_cfg().replace(ssd_impl="pallas", remat=True)
+    params = api.init(streams.model_generator(0, cuda), cfg)
+    leaves = [t.requires_grad_() for t in _float_leaves(params)]
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda,
+                         generator=streams.sampler_generator(1, cuda))
+    before = dict(launched)
+    loss = api.loss_fn(params, {"tokens": toks, "labels": toks}, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    n = [s.mixer for s in cfg.layer_specs()].count("mamba")
+    assert n >= 1
+    assert launched["gated_norm"] - before["gated_norm"] == 2 * n
+    assert launched["gated_norm_bwd"] - before["gated_norm_bwd"] == n
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+def _float_leaves(params):
+    from repro_torch import tree
+    return [t for t in tree.leaves(params) if t.is_floating_point()]
+
+
+# the JAX package's mixer on the CPU, saved by tests/_mamba_jax_ref.py; the
+# kernel path holds to it within the f32 SSD limit of the largest |value|:
+# K2 and the stage's kernel sum in another order than the reference
+MIXER_JAX_TOL = SSD_F32_TOL
+
+
+def test_mamba_mixer_kernel_path_meets_the_jax_reference(launched, cuda):
+    """``mamba_apply`` through K2 and the gated stage's kernels in f32 on
+    the card, on the inputs and parameters for which the fixture holds
+    the JAX package's mixer: the output and the gradients of x, D and the
+    norm's scale under the fixture's cotangent."""
+    import _mamba_jax_ref as jref
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models import mamba2 as mb
+    params, a = jref.load()
+    cfg = _mamba_cfg().replace(dtype="float32", ssd_impl="pallas")
+    p = params_from_numpy(params, cuda)
+    x = torch.from_numpy(a["x"]).to(cuda).requires_grad_()
+    leaves = [x, p["D"].requires_grad_(), p["norm"]["scale"].requires_grad_()]
+    before = dict(launched)
+    out = mb.mamba_apply(p, x, cfg)
+    grads = torch.autograd.grad(out, leaves,
+                                torch.from_numpy(a["cotangent"]).to(cuda))
+    # K2's backward kernel is bf16 alone; f32 recomputes the plain scan
+    assert {k: launched[k] - before[k] for k in before} == {
+        "flash_attention": 0, "ssd": 1, "ssd_bwd": 0, "gated_norm": 1,
+        "gated_norm_bwd": 1}
+    errs = {name: float((got.detach().cpu() - torch.from_numpy(a[name]))
+                        .abs().max() / np.abs(a[name]).max())
+            for got, name in zip((out, *grads), ("out", "dx", "dD",
+                                                 "dscale"))}
+    print("mixer vs JAX", errs)
+    assert all(e < MIXER_JAX_TOL for e in errs.values()), errs

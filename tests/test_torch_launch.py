@@ -412,7 +412,8 @@ def test_run_cell_counts_the_ssd_backward_kernel(reduced, tmp_path,
     """A bf16 training step of the reduced mamba2 with ``ssd_impl=pallas``
     on ``meta``: each SSD forward has its backward as one ``ssd_bwd``
     custom call (the reduced model has no remat), as the card launches
-    them, and nothing recomputes through ``ssd_chunked``."""
+    them, and nothing recomputes through ``ssd_chunked``; each mixer's
+    gated output stage is one ``gated_norm`` and one ``gated_norm_bwd``."""
     from repro_torch.models import mamba2 as mb
 
     def recompute(*a, **k):
@@ -423,8 +424,9 @@ def test_run_cell_counts_the_ssd_backward_kernel(reduced, tmp_path,
                           cut=1, cluster_size=K,
                           overrides=["ssd_impl=pallas"])
     calls = rec["custom_calls"]
-    assert set(calls) == {"ssd", "ssd_bwd"}
+    assert set(calls) == {"ssd", "ssd_bwd", "gated_norm", "gated_norm_bwd"}
     assert calls["ssd_bwd"] == calls["ssd"] >= 1
+    assert calls["gated_norm"] == calls["gated_norm_bwd"] == calls["ssd"]
 
 
 def test_dryrun_refuses_the_tpu_meshes(reduced, tmp_path, capsys):

@@ -17,7 +17,8 @@ and losses, against the JAX reference on the CPU.
 On the CPU the kernel wrappers compute their plain versions, so these
 tests hold the Functions' plumbing (layouts, group sums, None
 cotangents) to the reference; the kernels' own gradients are checked on
-the card by ``chip_smoke.py``'s ``lm_train`` phase. Inputs are numpy
+the card by ``tests/test_torch_cuda.py`` and
+``tests/test_torch_cuda_models.py``. Inputs are numpy
 arrays from fixed seeds, float32 throughout.
 """
 import jax

@@ -20,13 +20,16 @@ give it, one row a shape:
 - K2's backward at the CPSL train cell's server and device batches (4 and
   2 sequences of 4096);
 - the Mamba-2 mixer's gated output stage, forward and backward, at the
-  train cell's server rows, mamba2's serve prefill and its decode step.
+  train cell's server rows, mamba2's serve prefill and its decode step;
+- the Mamba-2 mixer's causal conv and SiLU, forward and backward, at the
+  train cell's server rows and mamba2's serve prefill, xBC read from
+  in_proj's rows.
 
 A row gives the kernel's ms, the ms of its plain PyTorch version (the
-recompute the backward replaced, and the eager chain the gated stage
-replaced), a PyTorch library call's ms where one computes the same
-function (``scaled_dot_product_attention``, for K1 without a softcap), and
-the least time the card could take, with the kernel's share of it. The
+recompute the backward replaced, and the eager chains the gated and the
+conv stages replaced), a PyTorch library call's ms where one computes the
+same function (``scaled_dot_product_attention``, for K1 without a softcap),
+and the least time the card could take, with the kernel's share of it. The
 least time is the benchmark's own arithmetic, ``perfbench/harness/work.py``
 and the ``k2_bwd_roofline_pct.train`` metric's ``bwd_work``, on the
 operands and results the wrapper reports through ``kernels.record_call``
@@ -315,6 +318,61 @@ def gated_rows() -> list:
     return rows
 
 
+# the conv stage: (label, batch, tokens) at mamba2-2.7b's widths (xBC the
+# 5,376 columns from 5,120 of in_proj's 10,576): a CPSL train cell's server
+# step (4 x 4096 tokens) and its serve prefill (4 x 8192)
+CONV_ROWS = [("train", 4, 4096), ("prefill", 4, 8192)]
+
+
+def conv_rows() -> list:
+    """The stage's forward and backward kernels (``kernels/causal_conv``),
+    xBC a column slice of in_proj's rows as the mixer passes it, beside the
+    eager chain they replaced (the cat that rebuilt xBC from its three
+    slices, ``causal_conv_silu_ref`` and its autograd backward), held to
+    the f64 gradient of the plain version. A few flops an element leave it
+    bound by bytes: every operand and result once, as ``work._nbytes``
+    counts them."""
+    import torch
+    from repro_torch.kernels.causal_conv import kernel as ck
+    from repro_torch.kernels.causal_conv.ref import causal_conv_silu_ref
+    from test_torch_cuda import (CONV_TOL, _conv_errs, _conv_f64,
+                                 _conv_inputs, _conv_sums_within)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    bf, rows = torch.bfloat16, []
+
+    def nbytes(ops, res):
+        return 0, work._nbytes(list(ops) + list(res))
+
+    def eager(x, w, b):
+        xbc = torch.cat(x.split([5120, 128, 128], dim=-1), dim=-1)
+        return causal_conv_silu_ref(xbc, w, b)
+
+    for label, B_, S in CONV_ROWS:
+        x, w, b, dy = _conv_inputs(gen, B_, S, 5376, 10576, 5120, 4, bf)
+        want, mags = _conv_f64(x, w, b, dy)
+        leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+        ref = eager(*leaves)
+
+        def check(out=None, grads=None, want=want, mags=mags):
+            errs = _conv_errs(out, grads, want)
+            assert all(e <= CONV_TOL[bf] for e in errs.values()), errs
+            assert grads is None or _conv_sums_within(grads, want, mags)
+            return errs
+
+        rows.append(_row(
+            f"CC fwd {label}", "causal_conv",
+            lambda: ck.causal_conv_fwd(x, w, b), lambda: eager(x, w, b),
+            None, nbytes, 20, lambda got: check(out=got)))
+        rows.append(_row(
+            f"CC bwd {label}", "causal_conv_bwd",
+            lambda: ck.causal_conv_bwd(x, w, b, dy),
+            lambda: torch.autograd.grad(ref, leaves, dy, retain_graph=True),
+            None, nbytes, 20, lambda got: check(grads=got)))
+        del x, w, b, dy, want, mags, leaves, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
 # the main paths: (arch, greedy steps) of a generate at the card suite's
 # batch and prompt (its SERVE_MODELS); mamba2's 32 steps are its serve
 # cell's, gemma2 has no cell
@@ -391,7 +449,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     smi = device_phase()
-    rows = flash_rows() + ssd_rows() + gated_rows()
+    rows = flash_rows() + ssd_rows() + gated_rows() + conv_rows()
     launches = main_path_launches()
     print(json.dumps({"kernels": rows, "launches": launches, "card": smi}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

@@ -25,6 +25,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import telemetry
 from repro_torch.configs.base import ModelConfig, SSMCfg
+from repro_torch.kernels.causal_conv.ref import (causal_conv,  # noqa: F401
+                                                 causal_conv_silu_ref)
 from repro_torch.kernels.gated_norm.ref import gated_norm_ref
 from repro_torch.models.common import (Params, _normal, dense, dense_init,
                                        norm_init, pdtype)
@@ -134,18 +136,9 @@ def ssd(x, dt, A, Bm, Cm, *, impl: str, chunk: int = 256, h0=None):
 
 
 # --------------------------------------------------------------------------
-# causal depthwise conv1d
+# causal depthwise conv1d (the full-sequence conv, ``causal_conv``, lives
+# with its kernel's plain version in kernels/causal_conv/ref.py)
 # --------------------------------------------------------------------------
-
-def causal_conv(x, w, b):
-    """x: (B,S,C), w: (K,C), b: (C,) — causal depthwise conv, summed in
-    x's dtype tap by tap, as the reference does (so bf16 rounds alike)."""
-    K = w.shape[0]
-    S = x.shape[1]
-    xp = F.pad(x, (0, 0, K - 1, 0))
-    y = sum(xp[:, k:k + S, :] * w[k].to(x.dtype) for k in range(K))
-    return y + b.to(x.dtype)
-
 
 def causal_conv_step(state, x_new, w, b):
     """state: (B,K-1,C), x_new: (B,C) -> (y (B,C), new state)."""
@@ -197,10 +190,10 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def _split_proj(zxbcdt, cfg: ModelConfig):
-    s: SSMCfg = cfg.ssm
-    d_inner, H, _ = mamba_dims(cfg)
-    gn = s.ngroups * s.d_state
-    return torch.split(zxbcdt, [d_inner, d_inner, gn, gn, H], dim=-1)
+    """z, xBC (x, B and C side by side: the conv's input) and dt, column
+    slices of the packed projection."""
+    d_inner, H, conv_dim = mamba_dims(cfg)
+    return torch.split(zxbcdt, [d_inner, conv_dim, H], dim=-1)
 
 
 def _broadcast_groups(t, H: int):
@@ -214,6 +207,18 @@ def _dt_A(dtr, p: Params):
     """dt = softplus(raw + bias) and A = -exp(A_log), both in f32."""
     dt = F.softplus(dtr.float() + p["dt_bias"].float())
     return dt, -torch.exp(p["A_log"].float())
+
+
+def conv_silu(xbc, p: Params, cfg: ModelConfig):
+    """The mixer's conv stage, silu(causal_conv(xBC)): xBC (B, S, conv_dim),
+    read in place as in_proj's column slice. Through the hand-written
+    kernel where the config takes the mixer's kernels (``ssd_impl``
+    "pallas"; for CPU tensors that path computes the plain version), else
+    the plain expression."""
+    if cfg.ssd_impl == "pallas":
+        from repro_torch.kernels.causal_conv import ops as cc_ops
+        return cc_ops.causal_conv_silu(xbc, p["conv_w"], p["conv_b"])
+    return causal_conv_silu_ref(xbc, p["conv_w"], p["conv_b"])
 
 
 def gated_norm(y, x, z, p: Params, cfg: ModelConfig):
@@ -241,10 +246,8 @@ def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
         raise ValueError(f"a prompt of {S} tokens is shorter than the "
                          f"{s.d_conv - 1} positions of the conv state")
     zxbcdt = dense(p["in_proj"], x)
-    z, xin, B_r, C_r, dtr = _split_proj(zxbcdt, cfg)
-
-    xbc_pre = torch.cat([xin, B_r, C_r], dim=-1)
-    xbc = F.silu(causal_conv(xbc_pre, p["conv_w"], p["conv_b"]))
+    z, xbc_pre, dtr = _split_proj(zxbcdt, cfg)
+    xbc = conv_silu(xbc_pre, p, cfg)
     xin, B_r, C_r = torch.split(
         xbc, [d_inner, s.ngroups * s.d_state, s.ngroups * s.d_state], dim=-1)
     xh = xin.reshape(B_, S, H, s.headdim)
@@ -255,7 +258,9 @@ def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     y = gated_norm(y, xh, z, p, cfg)
     out = dense(p["out_proj"], y)
     if return_state:
-        # the pre-conv, pre-SiLU window of the last d_conv - 1 positions
+        # the pre-conv, pre-SiLU window of the last d_conv - 1 positions:
+        # a view into in_proj's output, which the caller copies into its
+        # cache
         conv_state = xbc_pre[:, S - (s.d_conv - 1):, :]
         return out, (conv_state, hT)
     return out
@@ -282,8 +287,7 @@ def mamba_decode_step(p: Params, x: torch.Tensor, cache: dict,
     B_ = x.shape[0]
     d_inner, H, _ = mamba_dims(cfg)
     gn = s.ngroups * s.d_state
-    z, xin, B_r, C_r, dtr = _split_proj(dense(p["in_proj"], x[:, 0, :]), cfg)
-    xbc = torch.cat([xin, B_r, C_r], dim=-1)
+    z, xbc, dtr = _split_proj(dense(p["in_proj"], x[:, 0, :]), cfg)
     y_conv, conv_new = causal_conv_step(cache["conv"], xbc, p["conv_w"],
                                         p["conv_b"])
     xin, B_r, C_r = torch.split(F.silu(y_conv), [d_inner, gn, gn], dim=-1)

@@ -237,6 +237,9 @@ def block_prefill(p: Params, x, cfg: ModelConfig, spec: LayerSpec,
         # in place: ``cache`` may be this layer's view of the stacked cache
         cache["conv"].copy_(conv_state)
         cache["ssm"].copy_(hT)
+        # the conv state is a view of in_proj's output: free that before
+        # the FFN
+        del conv_state, hT
     if cfg.post_norm:
         a = cm.apply_norm(p["post_norm"], a, cfg.norm_kind, cfg.norm_eps)
     x, aux = _ffn(p, _residual(x, a, cfg), cfg, spec, no_drop=B * S <= 4096)

@@ -284,7 +284,7 @@ class LaunchCounter(dict):
 
     def __init__(self):
         super().__init__(flash_attention=0, ssd=0, ssd_bwd=0, gated_norm=0,
-                         gated_norm_bwd=0)
+                         gated_norm_bwd=0, causal_conv=0, causal_conv_bwd=0)
 
     def custom_call(self, name, operands, results):
         if operands and operands[0].device.type != "meta":

@@ -14,16 +14,18 @@ def _copy_csrc(tmp_path, monkeypatch):
 
 
 def test_every_source_and_header_is_in_the_tree():
-    assert _build.sources() == ["flash_attention", "gated_norm", "ssd",
-                                "ssd_bwd"]
+    assert _build.sources() == ["causal_conv", "flash_attention",
+                                "gated_norm", "ssd", "ssd_bwd"]
     headers = sorted(p.name for p in _build.CSRC.glob("*.cuh"))
     assert headers == ["mma.cuh", "tma.cuh"]
     for name in _build.sources():
         text = (_build.CSRC / f"{name}.cu").read_text()
         # every kernel on the tensor cores shares the wgmma helpers; the
         # two forwards also the TMA map encoder (the SSD backward loads by
-        # cp.async); the gated norm uses neither (plain 16-byte loads)
-        assert ('#include "mma.cuh"' in text) == (name != "gated_norm")
+        # cp.async); the gated norm and the causal conv use neither (plain
+        # 16-byte loads, and the conv its own cp.async copies)
+        assert ('#include "mma.cuh"' in text) == (
+            name not in ("gated_norm", "causal_conv"))
         assert ('#include "tma.cuh"' in text) == (name in ("flash_attention",
                                                          "ssd"))
 

@@ -1627,10 +1627,10 @@ MIXER_JAX_TOL = SSD_F32_TOL
 
 
 def test_mamba_mixer_kernel_path_meets_the_jax_reference(launched, cuda):
-    """``mamba_apply`` through K2 and the gated stage's kernels in f32 on
-    the card, on the inputs and parameters for which the fixture holds
-    the JAX package's mixer: the output and the gradients of x, D and the
-    norm's scale under the fixture's cotangent."""
+    """``mamba_apply`` through K2, the conv and the gated stage's kernels
+    in f32 on the card, on the inputs and parameters for which the fixture
+    holds the JAX package's mixer: the output and the gradients of x, D
+    and the norm's scale under the fixture's cotangent."""
     import _mamba_jax_ref as jref
     from repro_torch.convert import params_from_numpy
     from repro_torch.models import mamba2 as mb
@@ -1646,10 +1646,171 @@ def test_mamba_mixer_kernel_path_meets_the_jax_reference(launched, cuda):
     # K2's backward kernel is bf16 alone; f32 recomputes the plain scan
     assert {k: launched[k] - before[k] for k in before} == {
         "flash_attention": 0, "ssd": 1, "ssd_bwd": 0, "gated_norm": 1,
-        "gated_norm_bwd": 1}
+        "gated_norm_bwd": 1, "causal_conv": 1, "causal_conv_bwd": 1}
     errs = {name: float((got.detach().cpu() - torch.from_numpy(a[name]))
                         .abs().max() / np.abs(a[name]).max())
             for got, name in zip((out, *grads), ("out", "dx", "dD",
                                                  "dscale"))}
     print("mixer vs JAX", errs)
     assert all(e < MIXER_JAX_TOL for e in errs.values()), errs
+
+
+# --------------------------------------------------------------------------
+# the Mamba-2 mixer's conv stage (kernels/causal_conv)
+# --------------------------------------------------------------------------
+
+# (B, S, C, the row width x is a column slice of, its first column, K): the
+# train cell's server step and mamba2's prefill at its in_proj rows
+# (x at column 5,120 of 10,576), granite's and jamba's widths, C not a
+# multiple of 8 and a base off 16 bytes (the scalar path), the reduced
+# mixer, S under K and not a multiple of a block's rows, K below 4
+CONV_CASES = [(4, 4096, 5376, 10576, 5120, 4), (4, 8192, 5376, 10576, 5120, 4),
+              (2, 4096, 8448, 16768, 8192, 4), (2, 4096, 8224, 16544, 8192, 4),
+              (3, 1000, 1003, 1100, 40, 4), (2, 513, 512, 600, 1, 4),
+              (2, 37, 160, 296, 128, 4), (2, 3, 160, 296, 128, 4),
+              (2, 300, 256, 296, 8, 3), (2, 300, 256, 296, 8, 2),
+              (2, 300, 256, 296, 8, 1)]
+# Against the f64 gradient of the plain version on the same values. An
+# output (y, dx) in bf16 is one rounding of the kernel's f32 value: at most
+# half an ulp, 2^-8 of the value; one ulp of the largest output, 2^-7 of
+# it, leaves room for the f32 arithmetic (the plain bf16 path rounds after
+# every tap product and add). In f32 the same arithmetic in another order,
+# with __expf (a few ulps).
+CONV_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -7}
+# dw and db are f32 sums over the rows in another order: within 1e-5 of
+# the sum of their terms' magnitudes
+CONV_SUM_TOL = 1e-5
+
+
+def _conv_inputs(gen, B_, S, C, width, col, K, dtype):
+    """x (B, S, C) a column slice of (B, S, width) rows, as in_proj's
+    output holds xBC; taps, bias and dy as the stage sees them."""
+    x = _randn(gen, B_, S, width, dtype=dtype)[..., col:col + C]
+    w = _randn(gen, K, C) / 2
+    b = _randn(gen, C)
+    return x, w, b, _randn(gen, B_, S, C, dtype=dtype)
+
+
+def _conv_f64(x, w, b, dy):
+    """The plain version's output and its gradients in f64, on the taps
+    and bias rounded to x's dtype as the stage rounds them; and the sums of
+    the magnitudes of dw's and db's terms."""
+    from repro_torch.kernels.causal_conv.ref import causal_conv_silu_ref
+    leaves = [t.detach().to(x.dtype).double().requires_grad_()
+              for t in (x, w, b)]
+    out = causal_conv_silu_ref(*leaves)
+    grads = torch.autograd.grad(out, leaves, dy.double())
+    with torch.no_grad():
+        K, S = w.shape[0], x.shape[1]
+        x64, w64, b64 = (t.detach() for t in leaves)
+        xp = F.pad(x64, (0, 0, K - 1, 0))
+        p = b64 + sum(xp[:, k:k + S] * w64[k] for k in range(K))
+        s = torch.sigmoid(p)
+        g = (dy.double() * s * (1 + p * (1 - s))).abs()
+        mags = (torch.stack([(g * xp[:, k:k + S].abs()).sum((0, 1))
+                             for k in range(K)]), g.sum((0, 1)))
+    return (out.detach(),) + grads, mags
+
+
+def _conv_errs(out, grads, want) -> dict:
+    """The forward's output (``out``) and the backward's dx (``grads``,
+    either may be None) against ``_conv_f64``'s, each of the largest
+    value."""
+    pairs = [("out", out, want[0])] if out is not None else []
+    if grads is not None:
+        pairs.append(("dx", grads[0], want[1]))
+    return {name: _gated_rel(a, b) for name, a, b in pairs}
+
+
+def _conv_sums_within(grads, want, mags) -> bool:
+    return all(a.dtype == torch.float32 and bool(
+        ((a.double() - b).abs() <= CONV_SUM_TOL * m + 1e-30).all())
+        for a, b, m in zip(grads[1:], want[2:], mags))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B_,S,C,width,col,K", CONV_CASES)
+def test_causal_conv_kernel_vs_plain(launched, cuda, B_, S, C, width, col, K,
+                                     dtype):
+    from repro_torch.kernels.causal_conv import kernel as ck
+    from repro_torch.kernels.causal_conv.ref import causal_conv_silu_ref
+    gen = torch.Generator(device=cuda).manual_seed(51)
+    x, w, b, dy = _conv_inputs(gen, B_, S, C, width, col, K, dtype)
+    before = dict(launched)
+    out = ck.causal_conv_fwd(x, w, b)
+    grads = ck.causal_conv_bwd(x, w, b, dy)
+    torch.cuda.synchronize()
+    assert launched["causal_conv"] == before["causal_conv"] + 1
+    assert launched["causal_conv_bwd"] == before["causal_conv_bwd"] + 1
+    assert out.shape == grads[0].shape == x.shape
+    assert out.dtype == grads[0].dtype == dtype
+    want, mags = _conv_f64(x, w, b, dy)
+    errs = _conv_errs(out, grads, want)
+    print("causal_conv", (B_, S, C, width, col, K, dtype), errs)
+    assert all(e <= CONV_TOL[dtype] for e in errs.values()), errs
+    if dtype == torch.bfloat16:
+        # one rounding where the plain bf16 path rounds at every step
+        plain = causal_conv_silu_ref(x, w, b)
+        assert errs["out"] <= _gated_rel(plain, want[0])
+    assert _conv_sums_within(grads, want, mags)
+
+
+def test_causal_conv_sequences_start_from_zeros(cuda):
+    """Row b's first K - 1 outputs see zeros, not row b - 1's tail (made
+    large here), and row b's last dx no g of row b + 1: each sequence of
+    the batch gives the bits it gives alone."""
+    from repro_torch.kernels.causal_conv import kernel as ck
+    gen = torch.Generator(device=cuda).manual_seed(52)
+    x, w, b, dy = _conv_inputs(gen, 3, 300, 5376, 10576, 5120, 4,
+                               torch.bfloat16)
+    x[:, -3:] *= 1000
+    dy[:, :3] *= 1000
+    out = ck.causal_conv_fwd(x, w, b)
+    dx, _, _ = ck.causal_conv_bwd(x, w, b, dy)
+    for i in range(3):
+        assert torch.equal(out[i:i + 1], ck.causal_conv_fwd(x[i:i + 1], w, b))
+        assert torch.equal(dx[i:i + 1], ck.causal_conv_bwd(
+            x[i:i + 1], w, b, dy[i:i + 1].contiguous())[0])
+
+
+def test_causal_conv_repeated_calls_bit_equal(cuda):
+    from repro_torch.kernels.causal_conv import kernel as ck
+    gen = torch.Generator(device=cuda).manual_seed(53)
+    x, w, b, dy = _conv_inputs(gen, 4, 4096, 5376, 10576, 5120, 4,
+                               torch.bfloat16)
+    outs = [(ck.causal_conv_fwd(x, w, b),) + ck.causal_conv_bwd(x, w, b, dy)
+            for _ in range(3)]
+    for o in outs[1:]:
+        assert all(torch.equal(a, c) for a, c in zip(outs[0], o))
+
+
+def test_causal_conv_refuses_what_it_cannot_read(launched, cuda):
+    from repro_torch.kernels.causal_conv import kernel as ck
+    gen = torch.Generator(device=cuda).manual_seed(54)
+    x, w, b, _ = _conv_inputs(gen, 2, 64, 160, 296, 128, 4, torch.bfloat16)
+    before = dict(launched)
+    with pytest.raises(ValueError, match="unit last stride"):
+        ck.causal_conv_fwd(_randn(gen, 2, 64, 320, dtype=torch.bfloat16)
+                           [..., ::2], w, b)
+    with pytest.raises(ValueError, match="at most 4"):
+        ck.causal_conv_fwd(x, _randn(gen, 5, 160), b)
+    assert dict(launched) == before
+
+
+def test_reduced_mamba2_training_step_takes_the_conv_kernel(launched, cuda):
+    """A bf16 step of the reduced mamba2 with remat: the conv stage's kernel
+    twice a Mamba layer (the forward and its recompute), its backward once,
+    and every parameter gets a finite gradient."""
+    cfg = _mamba_cfg().replace(ssd_impl="pallas", remat=True)
+    params = api.init(streams.model_generator(0, cuda), cfg)
+    leaves = [t.requires_grad_() for t in _float_leaves(params)]
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda,
+                         generator=streams.sampler_generator(1, cuda))
+    before = dict(launched)
+    loss = api.loss_fn(params, {"tokens": toks, "labels": toks}, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    n = [s.mixer for s in cfg.layer_specs()].count("mamba")
+    assert n >= 1
+    assert launched["causal_conv"] - before["causal_conv"] == 2 * n
+    assert launched["causal_conv_bwd"] - before["causal_conv_bwd"] == n
+    assert all(bool(torch.isfinite(g).all()) for g in grads)

@@ -83,20 +83,21 @@ def _serve_batch(cfg, batch_size: int, prompt: int, device) -> dict:
 def _expected_launches(cfg, steps: int = STEPS) -> dict:
     """Each kernel's launches in one generate of ``steps`` tokens (a
     prefill and steps - 1 decode steps): K1 once per attention layer and
-    K2 once per Mamba layer of the prefill, the gated output stage's
-    kernel once per Mamba layer of the prefill and of each decode step, no
-    backward.
+    K2 and the conv stage's kernel once per Mamba layer of the prefill
+    (the decode steps the conv window on the host's eager path), the gated
+    output stage's kernel once per Mamba layer of the prefill and of each
+    decode step, no backward.
     An enc-dec model's prefill runs K1 once per encoder layer and twice
     per decoder layer (self- and cross-attention)."""
     want = {"flash_attention": 0, "ssd": 0, "ssd_bwd": 0, "gated_norm": 0,
-            "gated_norm_bwd": 0}
+            "gated_norm_bwd": 0, "causal_conv": 0, "causal_conv_bwd": 0}
     if cfg.encdec:
         n_dec = cfg.n_layers - cfg.n_enc_layers
         return {**want, "flash_attention": cfg.n_enc_layers + 2 * n_dec}
     mixers = [s.mixer for s in cfg.layer_specs()]
     n_mamba = mixers.count("mamba")
     return {**want, "flash_attention": mixers.count("attn"), "ssd": n_mamba,
-            "gated_norm": n_mamba * steps}
+            "gated_norm": n_mamba * steps, "causal_conv": n_mamba}
 
 
 @pytest.mark.parametrize("arch", SERVE_MODELS)
@@ -290,16 +291,18 @@ def _lm_launches_per_step(cfg, kernel: str, v: int) -> int:
 
 def _lm_step_launches(cfg, kernel: str, v: int) -> dict:
     """Each kernel's launches in one such step: ``kernel`` as
-    ``_lm_launches_per_step`` says; for K2, the gated output stage's kernel
-    as often (a Mamba layer runs both in its forward and its remat
-    recompute) and both backward kernels half that; every other kernel
-    never."""
+    ``_lm_launches_per_step`` says; for K2, the conv and the gated output
+    stages' kernels as often (a Mamba layer runs all three in its forward
+    and its remat recompute) and the three backward kernels half that;
+    every other kernel never."""
     per_step = _lm_launches_per_step(cfg, kernel, v)
     want = {"flash_attention": 0, "ssd": 0, "ssd_bwd": 0, "gated_norm": 0,
-            "gated_norm_bwd": 0, kernel: per_step}
+            "gated_norm_bwd": 0, "causal_conv": 0, "causal_conv_bwd": 0,
+            kernel: per_step}
     if kernel == "ssd":
         want.update(ssd_bwd=per_step // 2, gated_norm=per_step,
-                    gated_norm_bwd=per_step // 2)
+                    gated_norm_bwd=per_step // 2, causal_conv=per_step,
+                    causal_conv_bwd=per_step // 2)
     return want
 
 
@@ -391,13 +394,13 @@ def _first_step_updates(cp, state, batch) -> list:
 @pytest.mark.parametrize("arch", LM_MODELS)
 def test_split_lm_training_at_full_width(launched, cuda, arch):
     """Two rounds of ``CPSL.run_round``: each kernel launched as
-    ``_lm_launches_per_step`` says a step (a Mamba model's gated stage as
-    often as K2, and both backward kernels half that), every other kernel
-    never; finite step losses, falling where the params are f32 (bf16 SGD
-    can round a small update away); every parameter leaf reached by the
-    first step, and moved by it where ``_first_step_updates`` says it
-    must ("moved": its ``_fingerprint`` changed); the exported model's
-    forward finite."""
+    ``_lm_launches_per_step`` says a step (a Mamba model's conv and gated
+    stages as often as K2, and the three backward kernels half that), every
+    other kernel never; finite step losses, falling where the params are
+    f32 (bf16 SGD can round a small update away); every parameter leaf
+    reached by the first step, and moved by it where
+    ``_first_step_updates`` says it must ("moved": its ``_fingerprint``
+    changed); the exported model's forward finite."""
     kernel, impl, _, seq, batch, extra = LM_MODELS[arch]
     cfg = registry.get(arch).replace(**{
         "dtype": "bfloat16", "param_dtype": "float32", "remat": True,

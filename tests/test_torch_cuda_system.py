@@ -297,8 +297,8 @@ def test_dryrun_builders_count_the_card_run(launched, cuda, label):
     """A step built by the dry run's builders, once on ``meta`` (the
     estimate) and once on the card, each run under the op counter: the
     FLOPs and HBM bytes equal, and the custom calls equal on both and to
-    the kernels' launches on the card (a Mamba-2 mixer's gated output
-    stage runs its kernel once a layer too)."""
+    the kernels' launches on the card (a Mamba-2 mixer's conv and gated
+    output stages run their kernels once a layer too)."""
     from repro_torch.configs import registry
     from repro_torch.configs.base import ShapeCfg
     from repro_torch.launch import dryrun, hlo_analysis
@@ -321,8 +321,8 @@ def test_dryrun_builders_count_the_card_run(launched, cuda, label):
     run, _ = hlo_analysis.analyze(step, *args)
     torch.cuda.synchronize()
     assert (est.flops, est.hbm_bytes) == (run.flops, run.hbm_bytes)
-    want = {kernel: expect, **({"gated_norm": expect} if kernel == "ssd"
-                               else {})}
+    want = {kernel: expect, **({"gated_norm": expect, "causal_conv": expect}
+                               if kernel == "ssd" else {})}
     assert dict(est.custom_calls) == want == dict(run.custom_calls)
     assert {k: launched[k] - before[k] for k in before} == {
         k: want.get(k, 0) for k in before}

@@ -315,7 +315,8 @@ class _Ops(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-# read at the commit before the fields existed (CPU)
+# read at the commit before the fields existed (CPU); the mamba2 forward
+# has one cat a layer fewer since the mixer reads xBC as in_proj's slice
 DEEPSEEK_DECODE_OPS = {
     "__iand__": 3, "add": 32, "amax": 3, "arange": 16, "cat": 12,
     "chunk": 6, "clamp": 5, "copy_": 6, "cos": 6, "cumsum": 4, "div": 16,
@@ -326,7 +327,7 @@ DEEPSEEK_DECODE_OPS = {
     "sub": 13, "sum": 11, "to": 113, "unsqueeze": 44, "where": 5,
     "zeros": 6}
 MAMBA_FORWARD_OPS = {
-    "add": 31, "arange": 1, "cat": 4, "cumsum": 4, "einsum": 16, "exp": 18,
+    "add": 31, "arange": 1, "cat": 2, "cumsum": 4, "einsum": 16, "exp": 18,
     "expand": 4, "full": 4, "index": 1, "matmul": 5, "mean": 5,
     "movedim": 8, "mul": 47, "neg": 2, "numpy_T": 1, "ones": 2, "pad": 2,
     "reshape": 12, "rsqrt": 5, "select": 12, "silu": 4, "slice": 28,

@@ -413,7 +413,8 @@ def test_run_cell_counts_the_ssd_backward_kernel(reduced, tmp_path,
     on ``meta``: each SSD forward has its backward as one ``ssd_bwd``
     custom call (the reduced model has no remat), as the card launches
     them, and nothing recomputes through ``ssd_chunked``; each mixer's
-    gated output stage is one ``gated_norm`` and one ``gated_norm_bwd``."""
+    gated output stage is one ``gated_norm`` and one ``gated_norm_bwd``,
+    and its conv stage one ``causal_conv`` and one ``causal_conv_bwd``."""
     from repro_torch.models import mamba2 as mb
 
     def recompute(*a, **k):
@@ -424,9 +425,11 @@ def test_run_cell_counts_the_ssd_backward_kernel(reduced, tmp_path,
                           cut=1, cluster_size=K,
                           overrides=["ssd_impl=pallas"])
     calls = rec["custom_calls"]
-    assert set(calls) == {"ssd", "ssd_bwd", "gated_norm", "gated_norm_bwd"}
+    assert set(calls) == {"ssd", "ssd_bwd", "gated_norm", "gated_norm_bwd",
+                          "causal_conv", "causal_conv_bwd"}
     assert calls["ssd_bwd"] == calls["ssd"] >= 1
     assert calls["gated_norm"] == calls["gated_norm_bwd"] == calls["ssd"]
+    assert calls["causal_conv"] == calls["causal_conv_bwd"] == calls["ssd"]
 
 
 def test_dryrun_refuses_the_tpu_meshes(reduced, tmp_path, capsys):

@@ -108,10 +108,12 @@ def test_launch_counter_counts_launches_not_meta_calls():
         telemetry.record_call("flash_attention", (t,), (t,))
     telemetry.record_call("ssd", (t,), (t,))     # no longer counting
     assert dict(n) == {"flash_attention": 1, "ssd": 1, "ssd_bwd": 0,
-                       "gated_norm": 0, "gated_norm_bwd": 0}
+                       "gated_norm": 0, "gated_norm_bwd": 0,
+                       "causal_conv": 0, "causal_conv_bwd": 0}
     n.reset()
     assert dict(n) == {"flash_attention": 0, "ssd": 0, "ssd_bwd": 0,
-                       "gated_norm": 0, "gated_norm_bwd": 0}
+                       "gated_norm": 0, "gated_norm_bwd": 0,
+                       "causal_conv": 0, "causal_conv_bwd": 0}
 
 
 def test_nesting_parents_and_roots_across_threads(rec):
